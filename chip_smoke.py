@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Drive the tpu3fs_torch stripe data plane on one CUDA card.
+
+Run from the repository root, with one card:
+
+    python3 chip_smoke.py
+
+Phases, in order (any failure exits non-zero):
+  1. environment: the card's name and power limit, torch and CUDA versions;
+  2. build: the kernel library from tpu3fs_torch/csrc with nvcc;
+  3. K1 (gf2_matmul) against its plain PyTorch version, byte for byte, and
+     against the numpy gold encode/reconstruct;
+  4. K2 (crc32c_blocks) against its plain version and the scalar crc32c_py;
+  5. the stripe server answering requests through StripeCodec(12, 4, 1 MiB):
+     writes, a verify, degraded reads, a rebuild over a 1 GiB device store
+     and a 4 MiB chunk; the kernels' launch counts are read around it;
+  6. times with CUDA events at the phase-5 shapes, beside each kernel's bound
+     and its plain version's time.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+MIB = 1 << 20
+# H100 SXM published peaks (dense): HBM3 bandwidth and int8 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+K, M, S_WRITE, B_WRITE = 12, 4, MIB, 12   # bench.py's RS(12,4) write batch
+CHUNK_BYTES, S_CHUNK = 4 * MIB, 349_696    # shard_size_of(4 MiB, 12)
+STORE_STRIPES = 64                         # 64 x 16 x 1 MiB = 1 GiB store
+NO_LIBRARY = ("no single PyTorch call computes a GF(2^8) matrix apply "
+              "or a CRC32C")
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def require(ok, what: str) -> None:
+    """A failed check ends the run with a nonzero exit."""
+    if not ok:
+        raise AssertionError(what)
+
+
+def phase(name: str):
+    log(f"== {name}")
+    return time.perf_counter()
+
+
+def rand_u8(shape, seed: int, dev) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                         generator=g)
+
+
+def as_i64(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.uint32:  # few kernels take uint32: go through int32
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return t.to(torch.int64)
+
+
+class Compare:
+    """Holds a kernel's results against a reference; keeps the worst error."""
+
+    def __init__(self):
+        self.max_abs_err = 0
+        self.cases = 0
+
+    def __call__(self, got: torch.Tensor, want: torch.Tensor, label: str):
+        if got.shape != want.shape:
+            raise AssertionError(f"{label}: shape {got.shape} vs {want.shape}")
+        err = int((as_i64(got) - as_i64(want)).abs().max()) if got.numel() else 0
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.cases += 1
+        if err:
+            raise AssertionError(f"{label}: kernel differs from reference "
+                                 f"(max abs err {err})")
+
+
+def cuda_ms(fn, iters: int, warm: int = 2) -> float:
+    """Mean device time of fn() over iters calls, with CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, int8_ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int8_ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 1 -----------------------------------------------------------------
+def environment() -> str:
+    phase("phase 1: environment")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    log(smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}")
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a card")
+    # the plain versions take 0/1 products in float32; keep them full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    log(f"device {kind} count {torch.cuda.device_count()}")
+    return kind
+
+
+# -- phase 2 -----------------------------------------------------------------
+def build() -> None:
+    from tpu3fs_torch import kernels
+
+    t0 = phase("phase 2: build")
+    kernels.library()
+    log(f"kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
+    for line in kernels.build_log().splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log("  ptxas:", line.strip())
+
+
+# -- phase 3 -----------------------------------------------------------------
+def check_k1(dev, cmp: Compare) -> None:
+    from tpu3fs_torch.ops.gf256 import GF
+    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_plain,
+                                             prepare_matrix)
+    from tpu3fs_torch.ops.rs import RSCode
+
+    t0 = phase("phase 3: K1 gf2_matmul against its plain version")
+
+    def both(cols, data, label):
+        got = gf2_matmul(cols, data)
+        cmp(got, gf2_matmul_plain(cols, data), label)
+        return got
+
+    rs = RSCode(K, M, device=dev)
+    for S in (S_WRITE, S_CHUNK):
+        data = rand_u8((B_WRITE, K, S), 1, dev)
+        parity = both(rs._parity_cols, data, f"encode RS(12,4) S={S}")
+        gold = rs.encode_np(data[:2].cpu().numpy())
+        cmp(parity[:2].cpu(), torch.from_numpy(gold), f"encode gold S={S}")
+    shards = torch.cat([data, parity], dim=1)
+    for lost in [(0,), (0, 5), (0, 5, 12), (0, 5, 12, 15)]:
+        present = [i for i in range(K + M) if i not in lost][:K]
+        R = rs._reconstruct_matrix(tuple(present), lost)
+        cols = prepare_matrix(GF.expand_to_bits(R), dev)
+        out = both(cols, shards[:, present].contiguous(), f"decode o={len(lost)}")
+        cmp(out, shards[:, list(lost)], f"decode o={len(lost)} restores")
+        gold = rs.reconstruct_np(present, lost, shards[:1, present].cpu().numpy())
+        cmp(out[:1].cpu(), torch.from_numpy(gold), f"decode gold o={len(lost)}")
+    for k, m, S, B in [(3, 1, S_WRITE, 2), (6, 3, S_WRITE, 2),
+                       (12, 4, 1000, 3), (240, 16, 4096, 2), (255, 1, 4096, 2)]:
+        code = RSCode(k, m, device=dev)
+        both(code._parity_cols, rand_u8((B, k, S), k, dev), f"RS({k},{m}) S={S}")
+    # a contiguous tensor whose base is not 16-byte aligned
+    flat = rand_u8((2 * K * 4096 + 1,), 7, dev)
+    both(rs._parity_cols, flat[1:].view(2, K, 4096), "unaligned base")
+    # zero-size work returns without a launch
+    n0 = gf2_matmul.launches
+    empty_o = RSCode(4, 0, device=dev).encode(rand_u8((2, 4, 64), 3, dev))
+    empty_b = rs.encode(rand_u8((0, K, 64), 3, dev))
+    require(empty_o.shape == (2, 0, 64) and empty_b.shape == (0, M, 64)
+            and gf2_matmul.launches == n0, "a zero-size call launched")
+    torch.cuda.synchronize()
+    log(f"K1: {cmp.cases} comparisons equal ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 4 -----------------------------------------------------------------
+def check_k2(dev, cmp: Compare) -> None:
+    from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c_py
+
+    t0 = phase("phase 4: K2 crc32c_blocks against its plain version")
+    for size, block, rows in [(S_WRITE, 512, B_WRITE * (K + M)),
+                              (S_CHUNK, 512, K + M), (4096, 512, 64),
+                              (192, 192, 64), (1000, 1000, 8)]:
+        bc = BatchCrc32c(size, block, device=dev)
+        x = rand_u8((rows, size), size, dev)
+        x[1] = 0
+        x[2] = 0xFF
+        got = bc(x)
+        cmp(got, bc.compute(x), f"crc size={size} block={block}")
+        checked = [0, 1, 2] if size <= S_CHUNK else [0]
+        host = x[checked].cpu().numpy()
+        gold = torch.tensor([crc32c_py(r.tobytes()) for r in host],
+                            dtype=torch.int64)
+        cmp(as_i64(got)[checked].cpu(), gold, f"crc gold size={size}")
+    vec = BatchCrc32c(9, 9, device=dev)(
+        torch.frombuffer(bytearray(b"123456789"), dtype=torch.uint8)
+        .reshape(1, 9).to(dev))
+    require(int(as_i64(vec)[0]) == 0xE3069283, "crc32c(b'123456789')")
+    torch.cuda.synchronize()
+    log(f"K2: {cmp.cases} comparisons equal ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 5 -----------------------------------------------------------------
+def serve(dev) -> dict:
+    """The stripe server answers requests; returns launch counts per request."""
+    from tpu3fs_torch.ops.crc32c import crc32c_blocks, crc32c_py
+    from tpu3fs_torch.ops.gf2_matmul import gf2_matmul
+    from tpu3fs_torch.ops.stripe import StripeCodec, shard_size_of
+
+    t0 = phase("phase 5: the stripe server answers requests")
+    codec = StripeCodec(K, M, S_WRITE, device=dev)
+    chunk_codec = StripeCodec(K, M, shard_size_of(CHUNK_BYTES, K), device=dev)
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(0, 256, (B_WRITE, K, S_WRITE), dtype=np.uint8)
+               for _ in range(3)]
+    requests = []
+
+    def request(name, fn):
+        k1, k2 = gf2_matmul.launches, crc32c_blocks.launches
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        requests.append({"request": name,
+                         "host_ms": (time.perf_counter() - t) * 1e3,
+                         "k1_launches": gf2_matmul.launches - k1,
+                         "k2_launches": crc32c_blocks.launches - k2})
+        return out
+
+    gf2_matmul.launches = 0
+    crc32c_blocks.launches = 0
+    written = [request(f"write batch {i}", lambda d=d: codec.encode_batch(d))
+               for i, d in enumerate(batches)]
+    shards, crcs = written[0]
+    n = K + M
+    flat = shards.reshape(B_WRITE * n, S_WRITE)
+    verified = request("verify 192 shards", lambda: codec.crc_batch(flat))
+    bad = flat.copy()
+    bad[5 * n + 7, 12345] ^= 0x40
+    flagged = request("verify with one corrupt byte",
+                      lambda: codec.crc_batch(bad)) != crcs.reshape(-1)
+    lost4 = (0, 5, 12, 15)
+    present4 = [i for i in range(n) if i not in lost4]
+    read4 = request("degraded read, lost {0,5,12,15}",
+                    lambda: codec.reconstruct_batch(present4, lost4,
+                                                    shards[:, present4]))
+    present1 = [i for i in range(K + 1) if i != 3]
+    read1 = request("degraded read, lost {3} (XOR)",
+                    lambda: codec.reconstruct_batch(present1, (3,),
+                                                    shards[:, present1]))
+
+    # rebuild one failed shard index across a 64-stripe, 1 GiB device store
+    store = torch.empty((STORE_STRIPES, n, S_WRITE), dtype=torch.uint8,
+                        device=dev)
+    store_crcs = torch.empty((STORE_STRIPES, n), dtype=torch.int32, device=dev)
+    for b0 in range(0, STORE_STRIPES, 16):
+        sh, cr = codec.encode_batch(rand_u8((16, K, S_WRITE), 100 + b0, dev))
+        store[b0:b0 + 16] = sh
+        store_crcs[b0:b0 + 16] = cr.view(torch.int32)
+    failed = 7
+    survivors = [i for i in range(n) if i not in (failed, K)][:K]
+
+    def rebuild():
+        rebuilt = codec.reconstruct_batch(
+            survivors, (failed,), store[:, survivors].contiguous())
+        return rebuilt, codec.crc_batch(
+            rebuilt.reshape(STORE_STRIPES, S_WRITE))
+    rebuilt, rebuilt_crcs = request("rebuild shard 7 of a 1 GiB store", rebuild)
+
+    chunk = rng.integers(0, 256, CHUNK_BYTES, dtype=np.uint8).tobytes()
+    lostc = (2, 9, 13)
+
+    def chunk_round_trip():
+        cs, cc = chunk_codec.encode_stripe(chunk)
+        pres = [i for i in range(n) if i not in lostc][:K]
+        back = chunk_codec.reconstruct_batch(pres, lostc, cs[None, pres])[0]
+        full = cs.copy()
+        full[list(lostc)] = back
+        again = chunk_codec.crc_batch(full)
+        return cs, cc, full, again, chunk_codec.assemble(
+            [full[j].tobytes() for j in range(K)], len(chunk))
+    cs, cc, full, again, assembled = request("4 MiB chunk write + degraded read",
+                                             chunk_round_trip)
+    launches = {"gf2_matmul": gf2_matmul.launches,
+                "crc32c_blocks": crc32c_blocks.launches}
+
+    # answers are right: numpy gold, scalar CRC, restored bytes
+    rs = codec.rs
+    for d, (sh, _) in zip(batches, written):
+        require(np.array_equal(sh[:2, K:], rs.encode_np(d[:2])),
+                "write parity differs from the numpy gold")
+    require(int(crcs[3, 14]) == crc32c_py(shards[3, 14].tobytes()),
+            "stored CRC differs from crc32c_py")
+    require(np.array_equal(verified, crcs.reshape(-1)),
+            "verify disagrees with the stored CRCs")
+    require(np.flatnonzero(flagged).tolist() == [5 * n + 7],
+            f"corrupt shard flags {np.flatnonzero(flagged)}")
+    require(np.array_equal(read4, shards[:, list(lost4)]),
+            "4-loss degraded read differs")
+    require(np.array_equal(read1, shards[:, [3]]),
+            "XOR degraded read differs")
+    require(torch.equal(rebuilt[:, 0], store[:, failed]),
+            "rebuilt shard differs from the original")
+    require(torch.equal(rebuilt_crcs.view(torch.int32), store_crcs[:, failed]),
+            "rebuilt shard's CRCs differ from the stored CRCs")
+    require(np.array_equal(full, cs) and np.array_equal(again, cc)
+            and assembled == chunk, "4 MiB chunk round trip differs")
+    for name, count in launches.items():
+        require(count > 0, f"{name} was not launched on the main path")
+    del store, rebuilt
+    log(json.dumps({"requests": requests}))
+    log(f"main-path launches {launches} over {len(requests)} requests "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches, len(requests)
+
+
+# -- phase 6 -----------------------------------------------------------------
+def times(dev, launches: dict, cmp1: Compare, cmp2: Compare, n_requests: int):
+    from tpu3fs_torch.ops.gf256 import GF
+    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_plain,
+                                             prepare_matrix)
+    from tpu3fs_torch.ops.crc32c import BatchCrc32c
+    from tpu3fs_torch.ops.rs import RSCode, _xor_reduce_shards
+    from tpu3fs_torch.ops.stripe import StripeCodec
+
+    phase("phase 6: times (CUDA events, after warm-up)")
+    rs = RSCode(K, M, device=dev)
+    B, S = B_WRITE, S_WRITE
+    data = rand_u8((B, K, S), 11, dev)
+    enc_ms = cuda_ms(lambda: gf2_matmul(rs._parity_cols, data), 20)
+    enc_plain = cuda_ms(lambda: gf2_matmul_plain(rs._parity_cols, data), 3, 1)
+    lost = (0, 5, 12, 15)
+    present = [i for i in range(K + M) if i not in lost]
+    dec_cols = prepare_matrix(GF.expand_to_bits(
+        rs._reconstruct_matrix(tuple(present), lost)), dev)
+    dec_ms = cuda_ms(lambda: gf2_matmul(dec_cols, data), 20)
+    crc = BatchCrc32c(S, 512, device=dev)
+    rows = rand_u8((B * (K + M), S), 12, dev)
+    crc_ms = cuda_ms(lambda: crc(rows), 20)
+    crc_plain = cuda_ms(lambda: crc.compute(rows), 3, 1)
+    xor_ms = cuda_ms(lambda: _xor_reduce_shards(data), 20)
+    cdata = rand_u8((1, K, S_CHUNK), 13, dev)
+    chunk_ms = cuda_ms(lambda: gf2_matmul(rs._parity_cols, cdata), 50)
+
+    # where one write request's time goes: host->device copy of the numpy
+    # stripes, the device work (K1, concatenation, K2), device->host copy
+    codec = StripeCodec(K, M, S, device=dev)
+    host = np.random.default_rng(6).integers(0, 256, (B, K, S), dtype=np.uint8)
+    for _ in range(2):  # the second pass is the one kept (warm allocator)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        x = torch.from_numpy(host).to(dev)
+        ev[1].record()
+        shards, crcs = codec.encode_batch(x)
+        ev[2].record()
+        shards.cpu(), crcs.view(torch.int32).cpu()
+        ev[3].record()
+        ev[3].synchronize()
+    write_ms = {part: ev[i].elapsed_time(ev[i + 1]) for i, part in
+                enumerate(["host_to_device", "encode_and_crc", "device_to_host"])}
+
+    gib = lambda nbytes, ms: nbytes / (1 << 30) / (ms / 1e3)  # noqa: E731
+    k1_bytes = B * K * S + B * M * S + M * K * 8
+    k1_bound, k1_by = bound_ms(k1_bytes, 2 * (8 * M) * (8 * K) * B * S)
+    nrows, nblk = B * (K + M), S // 512
+    k2_bytes = nrows * S + nrows * 4 + nblk * 32 * 4
+    k2_bound, k2_by = bound_ms(
+        k2_bytes, nrows * (2 * 8 * S * 32 + 2 * nblk * 32 * 32))
+    xor_bound = (B * K * S + B * S) / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({
+        "encode_GiB_s": gib(B * K * S, enc_ms),
+        "decode_4_loss_GiB_s": gib(B * K * S, dec_ms), "decode_4_loss_ms": dec_ms,
+        "crc_GiB_s": gib(nrows * S, crc_ms),
+        "xor_rebuild_GiB_s": gib(B * K * S, xor_ms),
+        "encode_4MiB_chunk_ms": chunk_ms, "write_request_ms": write_ms,
+        "shapes": "RS(12,4), B=12 stripes, S=1 MiB; CRC over 192 shards of "
+                  "1 MiB, block 512; chunk S=349,696",
+    }))
+    log(json.dumps({"plain_torch_ops": [{
+        "name": "xor_reduce_shards (K3)", "replaces": "tpu3fs/ops/rs.py:42",
+        "ms": xor_ms, "bound_ms": xor_bound, "bound_by": "bytes"}]}))
+    per_req = {k: v / n_requests for k, v in launches.items()}
+    return [
+        {"name": "gf2_matmul", "route": "cuda",
+         "source": "tpu3fs_torch/csrc/gf2_matmul.cu",
+         "replaces": "tpu3fs/ops/pallas_rs.py:68",
+         "launches": launches["gf2_matmul"],
+         "launches_per_request": per_req["gf2_matmul"],
+         "equal_to_plain": cmp1.max_abs_err == 0,
+         "max_abs_err": cmp1.max_abs_err, "ms": enc_ms, "plain_ms": enc_plain,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "library_note": NO_LIBRARY},
+        {"name": "crc32c_blocks", "route": "cuda",
+         "source": "tpu3fs_torch/csrc/crc32c.cu",
+         "replaces": "tpu3fs/ops/crc32c.py:242",
+         "launches": launches["crc32c_blocks"],
+         "launches_per_request": per_req["crc32c_blocks"],
+         "equal_to_plain": cmp2.max_abs_err == 0,
+         "max_abs_err": cmp2.max_abs_err, "ms": crc_ms, "plain_ms": crc_plain,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "library_note": NO_LIBRARY},
+    ]
+
+
+def main() -> int:
+    t0 = time.perf_counter()
+    kind = environment()
+    import tpu3fs_torch  # noqa: F401  (fails when run outside the repo)
+
+    dev = torch.device("cuda")
+    build()
+    cmp1, cmp2 = Compare(), Compare()
+    check_k1(dev, cmp1)
+    check_k2(dev, cmp2)
+    launches, n_requests = serve(dev)
+    kernels = times(dev, launches, cmp1, cmp2, n_requests)
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,208 @@
+"""CRC32C (Castagnoli): scalar gold, the GF(2) block/shift matrices, and
+``BatchCrc32c`` with kernel K2.
+
+Counterpart of ``tpu3fs/ops/crc32c.py``. The CRC register update is affine
+over GF(2) in (state, message), so a row of N blocks of ``block`` bytes has
+
+  crc(row) = const XOR  XOR_j Ks[j] @ raw(0, block_j),  Ks[j] = A_blk^(N-1-j)
+
+where raw(0, .) is the register after the block from init 0 and A_blk
+advances the register through ``block`` zero bytes. ``BatchCrc32c.__call__``
+launches the CUDA kernel in ``csrc/crc32c.cu`` for a CUDA tensor (table walk
+per block, then the shift and an XOR reduction) and runs the plain version
+``compute`` (two float32 matmuls over bit-planes, as the JAX codec's einsums)
+only for a tensor on the CPU.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Union
+
+import numpy as np
+import torch
+
+from tpu3fs_torch import kernels
+from tpu3fs_torch.device import resolve_device
+from tpu3fs_torch.ops.bitops import (
+    np_bits_to_u32,
+    np_mat2_mul,
+    np_mat2_pow,
+    np_u32_to_bits,
+    pack_u32,
+    u32_tensor,
+    unpack_bits_last,
+)
+
+_POLY_REFLECTED = 0x82F63B78  # CRC32C, reflected form
+_XOROUT = 0xFFFFFFFF
+# rows of float32 bit-planes the plain version materialises at once
+_PLAIN_CHUNK_BYTES = 1 << 28
+
+
+def _make_table() -> np.ndarray:
+    table = np.zeros(256, dtype=np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ _POLY_REFLECTED if c & 1 else c >> 1
+        table[i] = c
+    return table
+
+
+_TABLE = _make_table()
+
+
+def _raw_update(state: int, data: bytes) -> int:
+    """Advance the raw CRC register (no init/xorout) over data."""
+    c = state & 0xFFFFFFFF
+    for b in data:
+        c = (c >> 8) ^ int(_TABLE[(c ^ b) & 0xFF])
+    return c
+
+
+def crc32c_py(data: Union[bytes, bytearray, memoryview, np.ndarray],
+              crc: int = 0) -> int:
+    """Pure-Python CRC32C with standard init/xorout, chainable via ``crc``:
+    the gold the kernel is held against."""
+    if isinstance(data, np.ndarray):
+        data = data.astype(np.uint8).tobytes()
+    return _raw_update((crc & 0xFFFFFFFF) ^ _XOROUT, bytes(data)) ^ _XOROUT
+
+
+@functools.lru_cache(maxsize=1)
+def _byte_shift_matrix() -> np.ndarray:
+    """A: 32x32 GF(2) matrix advancing the register through one zero byte."""
+    A = np.zeros((32, 32), dtype=np.uint8)
+    for i in range(32):
+        A[:, i] = np_u32_to_bits(_raw_update(1 << i, b"\x00"))
+    return A
+
+
+@functools.lru_cache(maxsize=16)
+def _block_matrix(blk: int) -> np.ndarray:
+    """B^T, shape (8*blk, 32): message bits of a blk-byte block -> raw register.
+
+    Column construction uses raw(0, e || 0^d) = A^d @ raw(0, e): start from the
+    8 unit responses of the final byte and left-multiply by A per position.
+    """
+    A = _byte_shift_matrix()
+    base = np.zeros((32, 8), dtype=np.uint8)  # columns: bits of last byte
+    for t in range(8):
+        base[:, t] = np_u32_to_bits(_raw_update(0, bytes([1 << t])))
+    B = np.zeros((32, 8 * blk), dtype=np.uint8)
+    cur = base
+    for p in range(blk - 1, -1, -1):
+        B[:, 8 * p : 8 * p + 8] = cur
+        if p:
+            cur = np_mat2_mul(A, cur)
+    return np.ascontiguousarray(B.T)
+
+
+def _shift_columns(ks: np.ndarray) -> np.ndarray:
+    """(N, 32, 32) 0/1 shift matrices -> (N, 32) int32 holding the uint32
+    columns (column t of Ks[j], bit o = Ks[j, o, t]), for the kernel."""
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    cols = (ks.astype(np.uint64) * weights[None, :, None]).sum(axis=1)
+    return np.ascontiguousarray(cols.astype(np.uint32).view(np.int32))
+
+
+def crc32c_blocks(chunks: torch.Tensor, ks_cols: torch.Tensor, block: int,
+                  const: int) -> torch.Tensor:
+    """Kernel K2 on a CUDA tensor: (rows, size) uint8 -> (rows,) uint32.
+    ``crc32c_blocks.launches`` counts kernel launches."""
+    rows, size = chunks.shape
+    if chunks.device.type != "cuda" or ks_cols.device != chunks.device:
+        raise ValueError(f"chunks on {chunks.device}, shifts on {ks_cols.device}")
+    if chunks.dtype != torch.uint8 or not chunks.is_contiguous():
+        raise ValueError("crc32c_blocks takes contiguous uint8 rows")
+    if size % block or ks_cols.shape != (size // block, 32):
+        raise ValueError(f"size {size}, block {block}, shifts {ks_cols.shape}")
+    signed = const - (1 << 32) if const >= 1 << 31 else const
+    out = torch.full((rows,), signed, dtype=torch.int32, device=chunks.device)
+    if rows == 0:
+        return out.view(torch.uint32)
+    with torch.cuda.device(chunks.device):
+        stream = torch.cuda.current_stream(chunks.device).cuda_stream
+        rc = kernels.library().tpu3fs_crc32c_blocks(
+            chunks.data_ptr(), ks_cols.data_ptr(), out.data_ptr(), rows, size,
+            block, stream)
+    kernels.check(rc, "crc32c_blocks")
+    crc32c_blocks.launches += 1
+    return out.view(torch.uint32)
+
+
+crc32c_blocks.launches = 0
+
+
+class BatchCrc32c:
+    """Batched CRC32C over fixed-size rows on one device.
+
+    __call__(chunks: (batch, size) uint8) -> (batch,) torch.uint32, bit-exact
+    with crc32c_py(). ``size`` must be a multiple of ``block`` (default 512).
+    """
+
+    def __init__(self, size: int, block: int = 512, device=None):
+        if block <= 0 or size % block != 0:
+            raise ValueError(f"size {size} not a multiple of block {block}")
+        nblocks = size // block
+        B_T = _block_matrix(block).astype(np.int8)  # (8*blk, 32)
+        A_blk = np_mat2_pow(_byte_shift_matrix(), block)
+        # K[j] = A_blk^(nblocks-1-j): shifts block j's register to the end.
+        Ks = np.zeros((nblocks, 32, 32), dtype=np.int8)
+        cur = np.eye(32, dtype=np.uint8)
+        for j in range(nblocks - 1, -1, -1):
+            Ks[j] = cur
+            cur = np_mat2_mul(A_blk, cur)
+        # init correction: raw register of `size` zero bytes with init F
+        z = np_bits_to_u32(
+            np_mat2_pow(_byte_shift_matrix(), size)
+            @ np_u32_to_bits(_XOROUT).astype(np.int64) & 1)
+        self._setup(B_T, Ks, np.uint32(z ^ _XOROUT), device)
+
+    @classmethod
+    def from_arrays(cls, b_t: np.ndarray, ks: np.ndarray, const,
+                    device=None) -> "BatchCrc32c":
+        """Build from given state: B^T (8*block, 32), Ks (N, 32, 32), const."""
+        self = cls.__new__(cls)
+        self._setup(b_t, ks, const, device)
+        return self
+
+    def _setup(self, b_t, ks, const, device) -> None:
+        self.device = resolve_device(device)
+        self.block = b_t.shape[0] // 8
+        self.nblocks = ks.shape[0]
+        self.size = self.nblocks * self.block
+        self._b_t = np.asarray(b_t, dtype=np.int8)
+        self._ks = np.asarray(ks, dtype=np.int8)
+        self._const = int(np.uint32(const))
+        # plain-version operands (float32 0/1 is exact) and kernel operands
+        self._b_t_f = torch.from_numpy(self._b_t).to(self.device, torch.float32)
+        self._ks_f = torch.from_numpy(self._ks).to(self.device, torch.float32)
+        self._ks_cols = torch.from_numpy(_shift_columns(self._ks)).to(self.device)
+
+    def compute(self, chunks: torch.Tensor) -> torch.Tensor:
+        """Plain PyTorch version (the JAX codec's two einsums in float32).
+
+        Exact: the first sum is at most 8 * block, the second 32 * N, both
+        far below 2**24. Chunked along rows so the float expansion stays
+        bounded."""
+        batch = chunks.shape[0]
+        regs_out = torch.empty((batch,), dtype=torch.int64, device=chunks.device)
+        step = max(1, _PLAIN_CHUNK_BYTES // (self.size * 8 * 4))
+        for r0 in range(0, batch, step):
+            part = chunks[r0:r0 + step]
+            blocks = part.reshape(part.shape[0], self.nblocks, self.block)
+            bits = unpack_bits_last(blocks)  # (b, N, 8*blk) float32
+            regs = torch.matmul(bits, self._b_t_f).to(torch.int64) & 1
+            out_bits = torch.einsum(
+                "jot,bjt->bo", self._ks_f, regs.to(torch.float32))
+            regs_out[r0:r0 + step] = pack_u32(out_bits.to(torch.int64) & 1)
+        return u32_tensor(regs_out ^ self._const)
+
+    def __call__(self, chunks: torch.Tensor) -> torch.Tensor:
+        if chunks.ndim != 2 or chunks.shape[1] != self.size:
+            raise ValueError(f"chunks {tuple(chunks.shape)}, size {self.size}")
+        if chunks.device.type == "cpu":
+            return self.compute(chunks)
+        return crc32c_blocks(chunks, self._ks_cols, self.block, self._const)
