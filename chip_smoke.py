@@ -8,14 +8,22 @@ Run from the repository root, with one card:
 Phases, in order (any failure exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: the kernel library from tpu3fs_torch/csrc with nvcc;
-  3. K1 (gf2_matmul) against its plain PyTorch version, byte for byte, and
-     against the numpy gold encode/reconstruct;
-  4. K2 (crc32c_blocks) against its plain version and the scalar crc32c_py;
+  3. K1: layout probes (a unit matrix, single set bits), then both kernels
+     (the tensor-core gf2_matmul and gf2_matmul_bitslice) against the plain
+     PyTorch version, byte for byte, and the numpy gold encode/reconstruct;
+     a ragged S and an unaligned base must take the bit-sliced kernel;
+  4. K2: a probe (one set bit at each offset of a block), then both kernels
+     (the tensor-core crc32c_blocks and crc32c_blocks_table) against the
+     plain version and the scalar crc32c_py; block 1000, a 9-byte row and an
+     unaligned base must take the table kernel;
   5. the stripe server answering requests through StripeCodec(12, 4, 1 MiB):
      writes, a verify, degraded reads, a rebuild over a 1 GiB device store
-     and a 4 MiB chunk; the kernels' launch counts are read around it;
-  6. times with CUDA events at the phase-5 shapes, beside each kernel's bound
-     and its plain version's time.
+     and a 4 MiB chunk; the launch counts of every kernel and of the K3 XOR
+     are read around it, and every K1 and K2 launch must be a tensor-core
+     one;
+  6. times with CUDA events at the phase-5 shapes, the earlier kernel and
+     the tensor-core one in turns, beside each kernel's bound and its plain
+     version's time.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -141,18 +149,40 @@ def build() -> None:
 # -- phase 3 -----------------------------------------------------------------
 def check_k1(dev, cmp: Compare) -> None:
     from tpu3fs_torch.ops.gf256 import GF
-    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_plain,
-                                             prepare_matrix)
+    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_bitslice,
+                                             gf2_matmul_plain, prepare_matrix)
     from tpu3fs_torch.ops.rs import RSCode
 
-    t0 = phase("phase 3: K1 gf2_matmul against its plain version")
+    t0 = phase("phase 3: K1 gf2_matmul (both kernels) against its plain version")
 
-    def both(cols, data, label):
+    def both(cols, data, label, tensor_core=True):
+        """gf2_matmul (the tensor-core kernel where it takes the shape) and
+        the bit-sliced kernel, each against the plain version."""
+        n_tc, n_bs = gf2_matmul.launches, gf2_matmul_bitslice.launches
         got = gf2_matmul(cols, data)
-        cmp(got, gf2_matmul_plain(cols, data), label)
+        want = gf2_matmul_plain(cols, data)
+        cmp(got, want, label)
+        cmp(gf2_matmul_bitslice(cols, data), want, label + " (bit-sliced)")
+        require(gf2_matmul.launches - n_tc == int(tensor_core) and
+                gf2_matmul_bitslice.launches - n_bs == 2 - int(tensor_core),
+                f"{label}: launched the wrong K1 kernel")
         return got
 
+    # layout probes first: a unit matrix copies the data; one set bit of one
+    # symbol at a time lights exactly the matrix column of that bit
+    eye = prepare_matrix(GF.expand_to_bits(np.eye(K, dtype=np.uint8)), dev)
+    probe_data = rand_u8((2, K, 4096), 21, dev)
+    cmp(both(eye, probe_data, "probe: unit matrix"), probe_data,
+        "probe: unit matrix copies")
     rs = RSCode(K, M, device=dev)
+    single = torch.zeros((1, K, 8 * K * 16), dtype=torch.uint8, device=dev)
+    for j in range(K):
+        for t in range(8):
+            single[0, j, 16 * (8 * j + t)] = 1 << t
+    got = both(rs._parity_cols, single, "probe: single bits")
+    want = rs._parity_cols.reshape(M, 8 * K)  # column 8j + t
+    cmp(got[0, :, ::16], want, "probe: single bits light their columns")
+
     for S in (S_WRITE, S_CHUNK):
         data = rand_u8((B_WRITE, K, S), 1, dev)
         parity = both(rs._parity_cols, data, f"encode RS(12,4) S={S}")
@@ -168,45 +198,83 @@ def check_k1(dev, cmp: Compare) -> None:
         gold = rs.reconstruct_np(present, lost, shards[:1, present].cpu().numpy())
         cmp(out[:1].cpu(), torch.from_numpy(gold), f"decode gold o={len(lost)}")
     for k, m, S, B in [(3, 1, S_WRITE, 2), (6, 3, S_WRITE, 2),
-                       (12, 4, 1000, 3), (240, 16, 4096, 2), (255, 1, 4096, 2)]:
+                       (240, 16, 4096, 2), (255, 1, 4096, 2), (40, 6, 4160, 3)]:
         code = RSCode(k, m, device=dev)
         both(code._parity_cols, rand_u8((B, k, S), k, dev), f"RS({k},{m}) S={S}")
-    # a contiguous tensor whose base is not 16-byte aligned
+    # a ragged S and a base that is not 16-byte aligned: the bit-sliced kernel
+    both(rs._parity_cols, rand_u8((3, K, 1000), 12, dev), "RS(12,4) S=1000",
+         tensor_core=False)
     flat = rand_u8((2 * K * 4096 + 1,), 7, dev)
-    both(rs._parity_cols, flat[1:].view(2, K, 4096), "unaligned base")
+    both(rs._parity_cols, flat[1:].view(2, K, 4096), "unaligned base",
+         tensor_core=False)
     # zero-size work returns without a launch
-    n0 = gf2_matmul.launches
+    n0 = gf2_matmul.launches + gf2_matmul_bitslice.launches
     empty_o = RSCode(4, 0, device=dev).encode(rand_u8((2, 4, 64), 3, dev))
     empty_b = rs.encode(rand_u8((0, K, 64), 3, dev))
     require(empty_o.shape == (2, 0, 64) and empty_b.shape == (0, M, 64)
-            and gf2_matmul.launches == n0, "a zero-size call launched")
+            and gf2_matmul.launches + gf2_matmul_bitslice.launches == n0,
+            "a zero-size call launched")
     torch.cuda.synchronize()
     log(f"K1: {cmp.cases} comparisons equal ({time.perf_counter() - t0:.1f} s)")
 
 
 # -- phase 4 -----------------------------------------------------------------
 def check_k2(dev, cmp: Compare) -> None:
-    from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c_py
+    from tpu3fs_torch.ops.crc32c import (BatchCrc32c, crc32c_blocks,
+                                         crc32c_blocks_table, crc32c_py)
 
-    t0 = phase("phase 4: K2 crc32c_blocks against its plain version")
-    for size, block, rows in [(S_WRITE, 512, B_WRITE * (K + M)),
-                              (S_CHUNK, 512, K + M), (4096, 512, 64),
-                              (192, 192, 64), (1000, 1000, 8)]:
+    t0 = phase("phase 4: K2 crc32c_blocks (both kernels) against its plain version")
+
+    def both(bc, x, label, tensor_core=True):
+        """The codec's kernel (tensor cores where it takes the shape) and the
+        table kernel, each against the plain version."""
+        n_tc, n_tb = crc32c_blocks.launches, crc32c_blocks_table.launches
+        got = bc(x)
+        want = bc.compute(x)
+        cmp(got, want, label)
+        cmp(crc32c_blocks_table(x, bc._ks_cols, bc.block, bc._const), want,
+            label + " (table)")
+        require(crc32c_blocks.launches - n_tc == int(tensor_core) and
+                crc32c_blocks_table.launches - n_tb == 2 - int(tensor_core),
+                f"{label}: launched the wrong K2 kernel")
+        return got
+
+    # layout probe first: one set bit at each bit offset of a block
+    for block in (512, 192, 64):
+        bc = BatchCrc32c(block, block, device=dev)
+        off = torch.arange(8 * block, device=dev)
+        x = torch.zeros((8 * block, block), dtype=torch.uint8, device=dev)
+        x[off, off // 8] = (1 << (off % 8)).to(torch.uint8)
+        got = both(bc, x, f"probe: single bits, block {block}")
+        gold = torch.tensor([crc32c_py(r.tobytes()) for r in x.cpu().numpy()],
+                            dtype=torch.int64)
+        cmp(as_i64(got).cpu(), gold, f"probe gold, block {block}")
+
+    for size, block, rows, tensor_core in [
+            (S_WRITE, 512, B_WRITE * (K + M), True), (S_CHUNK, 512, K + M, True),
+            (4096, 512, 64, True), (192, 192, 64, True), (64, 64, 33, True),
+            (1000, 1000, 8, False)]:
         bc = BatchCrc32c(size, block, device=dev)
         x = rand_u8((rows, size), size, dev)
         x[1] = 0
         x[2] = 0xFF
-        got = bc(x)
-        cmp(got, bc.compute(x), f"crc size={size} block={block}")
+        got = both(bc, x, f"crc size={size} block={block}", tensor_core)
         checked = [0, 1, 2] if size <= S_CHUNK else [0]
         host = x[checked].cpu().numpy()
         gold = torch.tensor([crc32c_py(r.tobytes()) for r in host],
                             dtype=torch.int64)
         cmp(as_i64(got)[checked].cpu(), gold, f"crc gold size={size}")
+    # a base that is not 16-byte aligned: the table kernel
+    bc = BatchCrc32c(4096, 512, device=dev)
+    flat = rand_u8((16 * 4096 + 1,), 8, dev)
+    both(bc, flat[1:].view(16, 4096), "unaligned base", tensor_core=False)
+    n_tb = crc32c_blocks_table.launches
     vec = BatchCrc32c(9, 9, device=dev)(
         torch.frombuffer(bytearray(b"123456789"), dtype=torch.uint8)
         .reshape(1, 9).to(dev))
     require(int(as_i64(vec)[0]) == 0xE3069283, "crc32c(b'123456789')")
+    require(crc32c_blocks_table.launches == n_tb + 1,
+            "the 9-byte row did not take the table kernel")
     torch.cuda.synchronize()
     log(f"K2: {cmp.cases} comparisons equal ({time.perf_counter() - t0:.1f} s)")
 
@@ -214,8 +282,10 @@ def check_k2(dev, cmp: Compare) -> None:
 # -- phase 5 -----------------------------------------------------------------
 def serve(dev) -> dict:
     """The stripe server answers requests; returns launch counts per request."""
-    from tpu3fs_torch.ops.crc32c import crc32c_blocks, crc32c_py
-    from tpu3fs_torch.ops.gf2_matmul import gf2_matmul
+    from tpu3fs_torch.ops.crc32c import (crc32c_blocks, crc32c_blocks_table,
+                                         crc32c_py)
+    from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, gf2_matmul_bitslice
+    from tpu3fs_torch.ops.rs import _xor_reduce_shards
     from tpu3fs_torch.ops.stripe import StripeCodec, shard_size_of
 
     t0 = phase("phase 5: the stripe server answers requests")
@@ -226,19 +296,25 @@ def serve(dev) -> dict:
                for _ in range(3)]
     requests = []
 
+    counted = {"gf2_matmul": gf2_matmul,
+               "gf2_matmul_bitslice": gf2_matmul_bitslice,
+               "crc32c_blocks": crc32c_blocks,
+               "crc32c_blocks_table": crc32c_blocks_table,
+               "xor_reduce_shards": _xor_reduce_shards}
+
     def request(name, fn):
-        k1, k2 = gf2_matmul.launches, crc32c_blocks.launches
+        before = {n: f.launches for n, f in counted.items()}
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         requests.append({"request": name,
                          "host_ms": (time.perf_counter() - t) * 1e3,
-                         "k1_launches": gf2_matmul.launches - k1,
-                         "k2_launches": crc32c_blocks.launches - k2})
+                         **{n: f.launches - before[n]
+                            for n, f in counted.items()}})
         return out
 
-    gf2_matmul.launches = 0
-    crc32c_blocks.launches = 0
+    for f in counted.values():
+        f.launches = 0
     written = [request(f"write batch {i}", lambda d=d: codec.encode_batch(d))
                for i, d in enumerate(batches)]
     shards, crcs = written[0]
@@ -291,8 +367,7 @@ def serve(dev) -> dict:
             [full[j].tobytes() for j in range(K)], len(chunk))
     cs, cc, full, again, assembled = request("4 MiB chunk write + degraded read",
                                              chunk_round_trip)
-    launches = {"gf2_matmul": gf2_matmul.launches,
-                "crc32c_blocks": crc32c_blocks.launches}
+    launches = {n: f.launches for n, f in counted.items()}
 
     # answers are right: numpy gold, scalar CRC, restored bytes
     rs = codec.rs
@@ -315,8 +390,12 @@ def serve(dev) -> dict:
             "rebuilt shard's CRCs differ from the stored CRCs")
     require(np.array_equal(full, cs) and np.array_equal(again, cc)
             and assembled == chunk, "4 MiB chunk round trip differs")
-    for name, count in launches.items():
-        require(count > 0, f"{name} was not launched on the main path")
+    for name in ("gf2_matmul", "crc32c_blocks", "xor_reduce_shards"):
+        require(launches[name] > 0, f"{name} was not launched on the main path")
+    for name in ("gf2_matmul_bitslice", "crc32c_blocks_table"):
+        require(launches[name] == 0,
+                f"{name} ran on the main path: every K1 and K2 launch there "
+                "must be a tensor-core launch")
     del store, rebuilt
     log(json.dumps({"requests": requests}))
     log(f"main-path launches {launches} over {len(requests)} requests "
@@ -325,11 +404,31 @@ def serve(dev) -> dict:
 
 
 # -- phase 6 -----------------------------------------------------------------
+def mma_rates(dev) -> dict:
+    """Issue rate of the two mma forms on register operands, every SM busy
+    (csrc/mma_rate.cu): the card's data sheet has no 1-bit rate."""
+    from tpu3fs_torch import kernels
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    blocks, iters = 8 * sms, 512
+    rates = {}
+    for kind, name, ops in ((0, "b1_m16n8k256", 2 * 16 * 8 * 256),
+                            (1, "s8_m16n8k32", 2 * 16 * 8 * 32)):
+        def launch(kind=kind):
+            kernels.launch("tpu3fs_mma_rate", dev, kind, blocks, iters, out)
+        ms = cuda_ms(launch, 5)
+        per_s = blocks * 8 * iters * 8 / (ms / 1e3)
+        rates[name] = {"ms": ms, "mma_per_s_per_sm": per_s / sms,
+                       "dense_TOP_s": per_s * ops / 1e12}
+    return rates
+
+
 def times(dev, launches: dict, cmp1: Compare, cmp2: Compare, n_requests: int):
     from tpu3fs_torch.ops.gf256 import GF
-    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_plain,
-                                             prepare_matrix)
-    from tpu3fs_torch.ops.crc32c import BatchCrc32c
+    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_bitslice,
+                                             gf2_matmul_plain, prepare_matrix)
+    from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c_blocks_table
     from tpu3fs_torch.ops.rs import RSCode, _xor_reduce_shards
     from tpu3fs_torch.ops.stripe import StripeCodec
 
@@ -337,20 +436,35 @@ def times(dev, launches: dict, cmp1: Compare, cmp2: Compare, n_requests: int):
     rs = RSCode(K, M, device=dev)
     B, S = B_WRITE, S_WRITE
     data = rand_u8((B, K, S), 11, dev)
-    enc_ms = cuda_ms(lambda: gf2_matmul(rs._parity_cols, data), 20)
+    crc = BatchCrc32c(S, 512, device=dev)
+    rows = rand_u8((B * (K + M), S), 12, dev)
+
+    def turns(old, new):
+        """The earlier kernel and the new one in turns: old, new, new, old."""
+        t = [cuda_ms(old, 30), cuda_ms(new, 30), cuda_ms(new, 30),
+             cuda_ms(old, 30)]
+        return {"new_ms": [t[1], t[2]], "old_ms": [t[0], t[3]],
+                "new": (t[1] + t[2]) / 2, "old": (t[0] + t[3]) / 2}
+
+    enc = turns(lambda: gf2_matmul_bitslice(rs._parity_cols, data),
+                lambda: gf2_matmul(rs._parity_cols, data))
+    crct = turns(lambda: crc32c_blocks_table(rows, crc._ks_cols, 512, crc._const),
+                 lambda: crc(rows))
     enc_plain = cuda_ms(lambda: gf2_matmul_plain(rs._parity_cols, data), 3, 1)
+    crc_plain = cuda_ms(lambda: crc.compute(rows), 3, 1)
     lost = (0, 5, 12, 15)
     present = [i for i in range(K + M) if i not in lost]
     dec_cols = prepare_matrix(GF.expand_to_bits(
         rs._reconstruct_matrix(tuple(present), lost)), dev)
-    dec_ms = cuda_ms(lambda: gf2_matmul(dec_cols, data), 20)
-    crc = BatchCrc32c(S, 512, device=dev)
-    rows = rand_u8((B * (K + M), S), 12, dev)
-    crc_ms = cuda_ms(lambda: crc(rows), 20)
-    crc_plain = cuda_ms(lambda: crc.compute(rows), 3, 1)
-    xor_ms = cuda_ms(lambda: _xor_reduce_shards(data), 20)
+    dec_ms = cuda_ms(lambda: gf2_matmul(dec_cols, data), 30)
+    dec_old_ms = cuda_ms(lambda: gf2_matmul_bitslice(dec_cols, data), 30)
+    one_cols = prepare_matrix(GF.expand_to_bits(
+        rs._reconstruct_matrix(tuple(range(1, K + 1)), (0,))), dev)
+    dec1_ms = cuda_ms(lambda: gf2_matmul(one_cols, data), 30)
+    xor_ms = cuda_ms(lambda: _xor_reduce_shards(data), 30)
     cdata = rand_u8((1, K, S_CHUNK), 13, dev)
     chunk_ms = cuda_ms(lambda: gf2_matmul(rs._parity_cols, cdata), 50)
+    rates = mma_rates(dev)
 
     # where one write request's time goes: host->device copy of the numpy
     # stripes, the device work (K1, concatenation, K2), device->host copy
@@ -378,37 +492,46 @@ def times(dev, launches: dict, cmp1: Compare, cmp2: Compare, n_requests: int):
         k2_bytes, nrows * (2 * 8 * S * 32 + 2 * nblk * 32 * 32))
     xor_bound = (B * K * S + B * S) / HBM_BYTES_PER_S * 1e3
     log(json.dumps({
-        "encode_GiB_s": gib(B * K * S, enc_ms),
+        "encode_GiB_s": gib(B * K * S, enc["new"]),
+        "encode_bitslice_GiB_s": gib(B * K * S, enc["old"]),
+        "encode_turns_ms": enc, "crc_turns_ms": crct,
         "decode_4_loss_GiB_s": gib(B * K * S, dec_ms), "decode_4_loss_ms": dec_ms,
-        "crc_GiB_s": gib(nrows * S, crc_ms),
+        "decode_4_loss_bitslice_ms": dec_old_ms, "decode_1_loss_ms": dec1_ms,
+        "crc_GiB_s": gib(nrows * S, crct["new"]),
+        "crc_table_GiB_s": gib(nrows * S, crct["old"]),
         "xor_rebuild_GiB_s": gib(B * K * S, xor_ms),
-        "encode_4MiB_chunk_ms": chunk_ms, "write_request_ms": write_ms,
+        "encode_4MiB_chunk_ms": chunk_ms,
+        "write_request_ms": write_ms, "mma_rates": rates,
         "shapes": "RS(12,4), B=12 stripes, S=1 MiB; CRC over 192 shards of "
                   "1 MiB, block 512; chunk S=349,696",
     }))
     log(json.dumps({"plain_torch_ops": [{
         "name": "xor_reduce_shards (K3)", "replaces": "tpu3fs/ops/rs.py:42",
+        "launches": launches["xor_reduce_shards"],
         "ms": xor_ms, "bound_ms": xor_bound, "bound_by": "bytes"}]}))
-    per_req = {k: v / n_requests for k, v in launches.items()}
+
+    def record(name, variant, source, replaces, cmp, ms, earlier_ms, plain,
+               bound, by):
+        return {"name": name, "variant": variant, "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launches[name],
+                "launches_per_request": launches[name] / n_requests,
+                "equal_to_plain": cmp.max_abs_err == 0,
+                "max_abs_err": cmp.max_abs_err, "ms": ms, "pr1_ms": earlier_ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": None, "library_note": NO_LIBRARY}
+
+    k1 = ("tpu3fs_torch/csrc/gf2_matmul.cu", "tpu3fs/ops/pallas_rs.py:68")
+    k2 = ("tpu3fs_torch/csrc/crc32c.cu", "tpu3fs/ops/crc32c.py:242")
     return [
-        {"name": "gf2_matmul", "route": "cuda",
-         "source": "tpu3fs_torch/csrc/gf2_matmul.cu",
-         "replaces": "tpu3fs/ops/pallas_rs.py:68",
-         "launches": launches["gf2_matmul"],
-         "launches_per_request": per_req["gf2_matmul"],
-         "equal_to_plain": cmp1.max_abs_err == 0,
-         "max_abs_err": cmp1.max_abs_err, "ms": enc_ms, "plain_ms": enc_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "library_note": NO_LIBRARY},
-        {"name": "crc32c_blocks", "route": "cuda",
-         "source": "tpu3fs_torch/csrc/crc32c.cu",
-         "replaces": "tpu3fs/ops/crc32c.py:242",
-         "launches": launches["crc32c_blocks"],
-         "launches_per_request": per_req["crc32c_blocks"],
-         "equal_to_plain": cmp2.max_abs_err == 0,
-         "max_abs_err": cmp2.max_abs_err, "ms": crc_ms, "plain_ms": crc_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-         "library_note": NO_LIBRARY},
+        record("gf2_matmul", "tensor_core", *k1, cmp1, enc["new"], enc["old"],
+               enc_plain, k1_bound, k1_by),
+        record("gf2_matmul_bitslice", "bitslice", *k1, cmp1, enc["old"],
+               enc["old"], enc_plain, k1_bound, k1_by),
+        record("crc32c_blocks", "tensor_core", *k2, cmp2, crct["new"],
+               crct["old"], crc_plain, k2_bound, k2_by),
+        record("crc32c_blocks_table", "table", *k2, cmp2, crct["old"],
+               crct["old"], crc_plain, k2_bound, k2_by),
     ]
 
 

@@ -81,6 +81,19 @@ def test_xor_path_matches_jax_xor_reduce():
         assert np.array_equal(got, shards[:, list(lost)])
 
 
+def test_xor_reduce_counts_its_calls():
+    """K3's counter moves once per XOR rebuild and not on the matrix path."""
+    t = trs.RSCode(6, 3, device="cpu")
+    shards = torch.from_numpy(
+        np.random.default_rng(9).integers(0, 256, (2, 9, 64), dtype=np.uint8))
+    before = trs._xor_reduce_shards.launches
+    t.reconstruct(tuple(i for i in range(7) if i != 2), (2,),
+                  shards[:, [0, 1, 3, 4, 5, 6]])
+    assert trs._xor_reduce_shards.launches == before + 1
+    t.reconstruct((0, 1, 3, 4, 5, 7), (2,), shards[:, [0, 1, 3, 4, 5, 7]])
+    assert trs._xor_reduce_shards.launches == before + 1
+
+
 @pytest.mark.parametrize("k,m", [(3, 2), (4, 2), (5, 1), (3, 0)])
 def test_xor_rebuild_applies_agrees_on_every_pattern(k, m):
     j, t = jrs.RSCode(k, m), trs.RSCode(k, m, device="cpu")

@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
@@ -30,7 +32,10 @@ _I64 = ctypes.c_longlong
 # C entry -> argument types; every entry returns cudaGetLastError()
 _SIGNATURES = {
     "tpu3fs_gf2_matmul": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "tpu3fs_gf2_mma": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "tpu3fs_crc32c_blocks": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "tpu3fs_crc32c_mma": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "tpu3fs_mma_rate": [_I64, _I64, _I64, _P, _P],
 }
 
 
@@ -115,6 +120,17 @@ def build_log() -> str:
     library that ``library()`` loaded."""
     target = BUILD_DIR / f"libtpu3fs_torch_{_digest(_sources())}.log"
     return target.read_text() if target.exists() else ""
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call C entry ``entry`` on ``device``'s current stream: tensors are
+    passed as their data pointers, other arguments as they are; a nonzero
+    return raises."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        rc = getattr(library(), entry)(*ptrs, stream)
+    check(rc, entry)
 
 
 def check(rc: int, name: str) -> None:

@@ -8,10 +8,12 @@ over GF(2) in (state, message), so a row of N blocks of ``block`` bytes has
 
 where raw(0, .) is the register after the block from init 0 and A_blk
 advances the register through ``block`` zero bytes. ``BatchCrc32c.__call__``
-launches the CUDA kernel in ``csrc/crc32c.cu`` for a CUDA tensor (table walk
-per block, then the shift and an XOR reduction) and runs the plain version
-``compute`` (two float32 matmuls over bit-planes, as the JAX codec's einsums)
-only for a tensor on the CPU.
+launches a CUDA kernel of ``csrc/crc32c.cu`` for a CUDA tensor: the
+tensor-core one (raw = B^T . bits as a 1-bit ``mma``) where
+``tensor_core_takes`` says so, the table walk otherwise; both then shift by
+Ks[j] and XOR-reduce. It runs the plain version ``compute`` (two float32
+matmuls over bit-planes, as the JAX codec's einsums) only for a tensor on
+the CPU.
 """
 
 from __future__ import annotations
@@ -107,10 +109,45 @@ def _shift_columns(ks: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(cols.astype(np.uint32).view(np.int32))
 
 
-def crc32c_blocks(chunks: torch.Tensor, ks_cols: torch.Tensor, block: int,
-                  const: int) -> torch.Tensor:
-    """Kernel K2 on a CUDA tensor: (rows, size) uint8 -> (rows,) uint32.
-    ``crc32c_blocks.launches`` counts kernel launches."""
+# blocks the tensor-core kernel takes: B^T's fragments fit in shared memory
+_MMA_MAX_BLOCK = 2048
+
+
+def tensor_core_block(block: int) -> bool:
+    """True when the tensor-core kernel takes rows of ``block``-byte blocks:
+    a multiple of 32 bytes (whole 256-bit K-steps of 16-byte loads) up to
+    2048 bytes."""
+    return block % 32 == 0 and 32 <= block <= _MMA_MAX_BLOCK
+
+
+def tensor_core_takes(block: int, data_ptr: int) -> bool:
+    """``tensor_core_block`` and a 16-byte-aligned base."""
+    return tensor_core_block(block) and data_ptr % 16 == 0
+
+
+def _mma_fragments(b_t: np.ndarray) -> np.ndarray:
+    """B^T (8*block, 32) 0/1 -> (steps, 32, 8) int32: the B operand of
+    ``mma.m16n8k256.b1`` in the order ``csrc/crc32c.cu`` reads it.
+
+    Message bit q = 1024c + 32w + b is bit b of little-endian word w of the
+    block's 128-byte chunk c. Step s = 4c + u, lane 4g + t, slot 2n + h
+    holds column 8n + g of B^T over word 4t + u + 16h of chunk c: lane t
+    loads words 4t..4t+3 and 16+4t..16+4t+3 of each chunk, and step u takes
+    word u of both loads. A partial last chunk is zero-padded."""
+    nbits = b_t.shape[0]
+    chunks = -(-nbits // 1024)
+    bits = np.zeros((chunks * 1024, 32), dtype=np.uint64)
+    bits[:nbits] = np.asarray(b_t, dtype=np.uint64) & 1
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    words = (bits.reshape(chunks, 32, 32, 32)
+             * weights[None, None, :, None]).sum(axis=2)  # (c, w, column)
+    c, u, g, t, n, h = np.ix_(*(np.arange(d) for d in (chunks, 4, 8, 4, 4, 2)))
+    frags = words[c, 4 * t + u + 16 * h, 8 * n + g]  # (c, u, g, t, n, h)
+    return np.ascontiguousarray(
+        frags.reshape(chunks * 4, 32, 8).astype(np.uint32).view(np.int32))
+
+
+def _check_rows(chunks: torch.Tensor, ks_cols: torch.Tensor, block: int):
     rows, size = chunks.shape
     if chunks.device.type != "cuda" or ks_cols.device != chunks.device:
         raise ValueError(f"chunks on {chunks.device}, shifts on {ks_cols.device}")
@@ -118,21 +155,51 @@ def crc32c_blocks(chunks: torch.Tensor, ks_cols: torch.Tensor, block: int,
         raise ValueError("crc32c_blocks takes contiguous uint8 rows")
     if size % block or ks_cols.shape != (size // block, 32):
         raise ValueError(f"size {size}, block {block}, shifts {ks_cols.shape}")
+    return rows, size
+
+
+def _filled(rows: int, const: int, device) -> torch.Tensor:
     signed = const - (1 << 32) if const >= 1 << 31 else const
-    out = torch.full((rows,), signed, dtype=torch.int32, device=chunks.device)
-    if rows == 0:
-        return out.view(torch.uint32)
-    with torch.cuda.device(chunks.device):
-        stream = torch.cuda.current_stream(chunks.device).cuda_stream
-        rc = kernels.library().tpu3fs_crc32c_blocks(
-            chunks.data_ptr(), ks_cols.data_ptr(), out.data_ptr(), rows, size,
-            block, stream)
-    kernels.check(rc, "crc32c_blocks")
-    crc32c_blocks.launches += 1
+    return torch.full((rows,), signed, dtype=torch.int32, device=device)
+
+
+def crc32c_blocks(chunks: torch.Tensor, ks_cols: torch.Tensor,
+                  frags: torch.Tensor, block: int, const: int) -> torch.Tensor:
+    """Kernel K2 on a CUDA tensor: (rows, size) uint8 -> (rows,) uint32.
+
+    The tensor-core kernel where ``tensor_core_takes`` says so (``frags``
+    from ``_mma_fragments``), else ``crc32c_blocks_table``.
+    ``crc32c_blocks.launches`` counts tensor-core launches."""
+    if frags is None or not tensor_core_takes(block, chunks.data_ptr()):
+        return crc32c_blocks_table(chunks, ks_cols, block, const)
+    rows, size = _check_rows(chunks, ks_cols, block)
+    if frags.device != chunks.device or frags.shape != (4 * -(-block // 128), 32, 8):
+        raise ValueError(f"fragments {tuple(frags.shape)} on {frags.device}")
+    out = _filled(rows, const, chunks.device)
+    if rows:
+        kernels.launch("tpu3fs_crc32c_mma", chunks.device, chunks, frags,
+                       ks_cols, out, rows, size, block)
+        crc32c_blocks.launches += 1
     return out.view(torch.uint32)
 
 
 crc32c_blocks.launches = 0
+
+
+def crc32c_blocks_table(chunks: torch.Tensor, ks_cols: torch.Tensor,
+                        block: int, const: int) -> torch.Tensor:
+    """The table-walk kernel on a CUDA tensor, any block and alignment.
+    ``crc32c_blocks_table.launches`` counts its launches."""
+    rows, size = _check_rows(chunks, ks_cols, block)
+    out = _filled(rows, const, chunks.device)
+    if rows:
+        kernels.launch("tpu3fs_crc32c_blocks", chunks.device, chunks, ks_cols,
+                       out, rows, size, block)
+        crc32c_blocks_table.launches += 1
+    return out.view(torch.uint32)
+
+
+crc32c_blocks_table.launches = 0
 
 
 class BatchCrc32c:
@@ -180,6 +247,8 @@ class BatchCrc32c:
         self._b_t_f = torch.from_numpy(self._b_t).to(self.device, torch.float32)
         self._ks_f = torch.from_numpy(self._ks).to(self.device, torch.float32)
         self._ks_cols = torch.from_numpy(_shift_columns(self._ks)).to(self.device)
+        self._frags = (torch.from_numpy(_mma_fragments(self._b_t)).to(self.device)
+                       if tensor_core_block(self.block) else None)
 
     def compute(self, chunks: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch version (the JAX codec's two einsums in float32).
@@ -205,4 +274,5 @@ class BatchCrc32c:
             raise ValueError(f"chunks {tuple(chunks.shape)}, size {self.size}")
         if chunks.device.type == "cpu":
             return self.compute(chunks)
-        return crc32c_blocks(chunks, self._ks_cols, self.block, self._const)
+        return crc32c_blocks(chunks, self._ks_cols, self._frags, self.block,
+                             self._const)

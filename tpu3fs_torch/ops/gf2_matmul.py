@@ -7,8 +7,10 @@ kernel was a Mosaic layout and is not needed here), packed by
 ``prepare_matrix`` into (o, k, 8) bytes: byte (i, j, t) holds column 8j+t of
 rows 8i..8i+7, which is the GF(2^8) product c_ij * 2^t.
 
-``gf2_matmul`` launches the CUDA kernel in ``csrc/gf2_matmul.cu`` for a CUDA
-tensor and runs ``gf2_matmul_plain`` only for a tensor on the CPU.
+``gf2_matmul`` launches a CUDA kernel of ``csrc/gf2_matmul.cu`` for a CUDA
+tensor, the tensor-core one (1-bit ``mma``) where ``tensor_core_takes``
+says so and the bit-sliced one otherwise, and runs ``gf2_matmul_plain``
+only for a tensor on the CPU.
 """
 
 from __future__ import annotations
@@ -60,35 +62,68 @@ def gf2_matmul_plain(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, o, S)
 
 
-def gf2_matmul(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """Apply prepared (o, k, 8) columns to uint8 (..., k, S) -> (..., o, S).
+def tensor_core_takes(S: int, data_ptr: int) -> bool:
+    """True when the tensor-core kernel takes the shape: S % 16 == 0 and a
+    16-byte-aligned data base (the output is a fresh, aligned allocation).
+    Every shard size ``shard_size_of`` makes is a multiple of 64; a ragged
+    S or an unaligned base goes to the bit-sliced kernel."""
+    return S % 16 == 0 and data_ptr % 16 == 0
 
-    A CUDA tensor goes to the hand-written kernel (or raises); a CPU tensor
-    to the plain version. ``gf2_matmul.launches`` counts kernel launches."""
+
+def _checked(cols: torch.Tensor, data: torch.Tensor):
     o, k, eight = cols.shape
     *lead, kk, S = data.shape
     if kk != k or eight != 8:
         raise ValueError(f"matrix {tuple(cols.shape)} vs data {tuple(data.shape)}")
     if data.dtype != torch.uint8 or cols.dtype != torch.uint8:
         raise TypeError("gf2_matmul takes uint8 data and columns")
-    if data.device.type == "cpu":
-        return gf2_matmul_plain(cols, data)
+    return o, k, lead, S
+
+
+def _launch(entry: str, cols: torch.Tensor, data: torch.Tensor):
+    """Checks, output allocation and one launch of C entry ``entry``.
+    Returns (output, launched): no launch when o, B or S is 0 (a zero grid
+    is a launch error). The C entry checks the shape it takes and returns
+    an error for any other."""
+    o, k, lead, S = _checked(cols, data)
     if data.device.type != "cuda" or cols.device != data.device:
         raise ValueError(f"data on {data.device}, matrix on {cols.device}")
     if not (data.is_contiguous() and cols.is_contiguous()):
         raise ValueError("gf2_matmul takes contiguous tensors")
     out = torch.empty((*lead, o, S), dtype=torch.uint8, device=data.device)
-    if out.numel() == 0:  # o, B or S is 0: a zero grid is a launch error
-        return out
-    B = math.prod(lead)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = kernels.library().tpu3fs_gf2_matmul(
-            cols.data_ptr(), data.data_ptr(), out.data_ptr(), B, k, o, S,
-            stream)
-    kernels.check(rc, "gf2_matmul")
-    gf2_matmul.launches += 1
+    if out.numel() == 0:
+        return out, False
+    kernels.launch(entry, data.device, cols, data, out, math.prod(lead), k, o,
+                   S)
+    return out, True
+
+
+def gf2_matmul(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Apply prepared (o, k, 8) columns to uint8 (..., k, S) -> (..., o, S).
+
+    A CPU tensor goes to the plain version. A CUDA tensor goes to the
+    tensor-core kernel where ``tensor_core_takes`` says so, else to
+    ``gf2_matmul_bitslice``; a failed launch raises.
+    ``gf2_matmul.launches`` counts tensor-core launches."""
+    _checked(cols, data)
+    if data.device.type == "cpu":
+        return gf2_matmul_plain(cols, data)
+    if not tensor_core_takes(data.shape[-1], data.data_ptr()):
+        return gf2_matmul_bitslice(cols, data)
+    out, launched = _launch("tpu3fs_gf2_mma", cols, data)
+    gf2_matmul.launches += launched
     return out
 
 
 gf2_matmul.launches = 0
+
+
+def gf2_matmul_bitslice(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """The bit-sliced integer kernel on a CUDA tensor, any S and alignment.
+    ``gf2_matmul_bitslice.launches`` counts its launches."""
+    out, launched = _launch("tpu3fs_gf2_matmul", cols, data)
+    gf2_matmul_bitslice.launches += launched
+    return out
+
+
+gf2_matmul_bitslice.launches = 0

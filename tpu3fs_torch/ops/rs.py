@@ -24,11 +24,17 @@ from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, prepare_matrix
 
 
 def _xor_reduce_shards(shards: torch.Tensor) -> torch.Tensor:
-    """K3: (..., k, S) uint8 -> (..., 1, S), the XOR of the shard rows."""
+    """K3: (..., k, S) uint8 -> (..., 1, S), the XOR of the shard rows.
+    ``_xor_reduce_shards.launches`` counts calls (plain torch: k - 1 XOR
+    launches each)."""
     out = shards[..., 0:1, :].clone()
     for j in range(1, shards.shape[-2]):
         out.bitwise_xor_(shards[..., j:j + 1, :])
+    _xor_reduce_shards.launches += 1
     return out
+
+
+_xor_reduce_shards.launches = 0
 
 
 def _gf_apply_np(M: np.ndarray, shards: np.ndarray) -> np.ndarray:
