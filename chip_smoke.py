@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the tpu3fs_torch stripe data plane on one CUDA card.
+"""Drive the tpu3fs_torch data plane on one CUDA card.
 
 Run from the repository root, with one card:
 
@@ -16,14 +16,26 @@ Phases, in order (any failure exits non-zero):
      (the tensor-core crc32c_blocks and crc32c_blocks_table) against the
      plain version and the scalar crc32c_py; block 1000, a 9-byte row and an
      unaligned base must take the table kernel;
-  5. the stripe server answering requests through StripeCodec(12, 4, 1 MiB):
+  5. K3: the XOR-rebuild kernel xor_reduce against xor_reduce_plain at the
+     rebuild shape, k of 2, 7 and 12, a ragged S and an unaligned base;
+  6. the stripe server answering requests through StripeCodec(12, 4, 1 MiB):
      writes, a verify, degraded reads, a rebuild over a 1 GiB device store
-     and a 4 MiB chunk; the launch counts of every kernel and of the K3 XOR
-     are read around it, and every K1 and K2 launch must be a tensor-core
-     one;
-  6. times with CUDA events at the phase-5 shapes, the earlier kernel and
-     the tensor-core one in turns, beside each kernel's bound and its plain
-     version's time.
+     and a 4 MiB chunk;
+  7. the codec's chain-encode hops: delta_parity and hop_accumulate (numpy
+     and device accumulators) at RS(12,4), S = 1 MiB, B = 12, against the
+     plain versions on the CPU;
+  8. the multi-device path on a one-rank NCCL group: dryrun_multichip, a
+     chain write of 12 x 1 MiB rows checksummed by BatchCrc32c (K2) and an
+     all-to-all shuffle. One card holds one NCCL rank, so the chain ring
+     and the rebuild's all-gather (chain > 1) are not reached here: they
+     are held against the JAX package on gloo ranks by
+     tests/test_torch_parallel.py;
+  9. times with CUDA events at the phase-6 shapes, the earlier kernel and
+     the new one in turns, beside each kernel's bound and its plain
+     version's time; the times of the hop ops and the one-rank chain step.
+Phases 6, 7 and 8 are the main path: every kernel count is set to 0 just
+before each and read just after; every K1 and K2 launch there must be a
+tensor-core one and every K3 call a kernel launch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -31,9 +43,11 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import socket
 import subprocess
 import sys
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -47,6 +61,8 @@ CHUNK_BYTES, S_CHUNK = 4 * MIB, 349_696    # shard_size_of(4 MiB, 12)
 STORE_STRIPES = 64                         # 64 x 16 x 1 MiB = 1 GiB store
 NO_LIBRARY = ("no single PyTorch call computes a GF(2^8) matrix apply "
               "or a CRC32C")
+NO_XOR_LIBRARY = ("torch has no XOR reduction: no single PyTorch call "
+                  "computes the XOR of k rows")
 
 
 def log(*parts) -> None:
@@ -115,6 +131,42 @@ def bound_ms(nbytes: float, int8_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def counters() -> dict:
+    """name -> (function, attribute) of every kernel wrapper's launch count,
+    and of K3's plain version's call count."""
+    from tpu3fs_torch.ops.crc32c import crc32c_blocks, crc32c_blocks_table
+    from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, gf2_matmul_bitslice
+    from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
+
+    return {"gf2_matmul": (gf2_matmul, "launches"),
+            "gf2_matmul_bitslice": (gf2_matmul_bitslice, "launches"),
+            "crc32c_blocks": (crc32c_blocks, "launches"),
+            "crc32c_blocks_table": (crc32c_blocks_table, "launches"),
+            "xor_reduce": (xor_reduce, "launches"),
+            "xor_reduce_plain": (xor_reduce_plain, "calls")}
+
+
+def read_counts() -> dict:
+    return {n: getattr(f, a) for n, (f, a) in counters().items()}
+
+
+def zero_counts() -> None:
+    for f, a in counters().values():
+        setattr(f, a, 0)
+
+
+def require_main_path(path: str, counts: dict, launched) -> None:
+    """Every kernel in ``launched`` ran in this path; no K1 or K2 launch
+    took the earlier integer-unit kernels and no K3 call the plain loop."""
+    for name in launched:
+        require(counts[name] > 0, f"{name} was not launched on {path}")
+    for name in ("gf2_matmul_bitslice", "crc32c_blocks_table",
+                 "xor_reduce_plain"):
+        require(counts[name] == 0,
+                f"{name} ran on {path}: every K1 and K2 launch there must "
+                "be a tensor-core launch and every K3 call a kernel launch")
+
+
 # -- phase 1 -----------------------------------------------------------------
 def environment() -> str:
     phase("phase 1: environment")
@@ -142,7 +194,8 @@ def build() -> None:
     kernels.library()
     log(f"kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
     for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             log("  ptxas:", line.strip())
 
 
@@ -280,15 +333,49 @@ def check_k2(dev, cmp: Compare) -> None:
 
 
 # -- phase 5 -----------------------------------------------------------------
+def check_k3(dev, cmp: Compare) -> None:
+    from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
+
+    t0 = phase("phase 5: K3 xor_reduce against its plain version")
+
+    def check(x, label):
+        n = xor_reduce.launches
+        got = xor_reduce(x)
+        require(xor_reduce.launches == n + 1, f"{label}: K3 did not launch")
+        cmp(got, xor_reduce_plain(x), label)
+        return got
+
+    # layout probe first: one set byte per row lands in its own column
+    probe = torch.zeros((2, K, 16 * K), dtype=torch.uint8, device=dev)
+    for j in range(K):
+        probe[:, j, 16 * j + j % 16] = 1 << (j % 8)
+    want = torch.zeros((2, 1, 16 * K), dtype=torch.uint8, device=dev)
+    for j in range(K):
+        want[:, 0, 16 * j + j % 16] = 1 << (j % 8)
+    cmp(check(probe, "probe: one byte per row"), want, "probe lands")
+
+    for k in (2, 7, K):
+        check(rand_u8((B_WRITE, k, S_WRITE), 30 + k, dev), f"k={k} S=1 MiB")
+    check(rand_u8((3, K, S_CHUNK), 41, dev), f"k=12 S={S_CHUNK}")
+    check(rand_u8((3, K, 1000), 42, dev), "ragged S=1000")
+    flat = rand_u8((2 * K * 4096 + 1,), 43, dev)
+    check(flat[1:].view(2, K, 4096), "unaligned base")
+    check(rand_u8((K, 4096), 44, dev), "no batch dimension")
+    n0 = xor_reduce.launches
+    empty = xor_reduce(rand_u8((0, K, 64), 45, dev))
+    require(empty.shape == (0, 1, 64) and xor_reduce.launches == n0,
+            "a zero-size call launched")
+    torch.cuda.synchronize()
+    log(f"K3: {cmp.cases} comparisons equal ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 6 -----------------------------------------------------------------
 def serve(dev) -> dict:
     """The stripe server answers requests; returns launch counts per request."""
-    from tpu3fs_torch.ops.crc32c import (crc32c_blocks, crc32c_blocks_table,
-                                         crc32c_py)
-    from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, gf2_matmul_bitslice
-    from tpu3fs_torch.ops.rs import _xor_reduce_shards
+    from tpu3fs_torch.ops.crc32c import crc32c_py
     from tpu3fs_torch.ops.stripe import StripeCodec, shard_size_of
 
-    t0 = phase("phase 5: the stripe server answers requests")
+    t0 = phase("phase 6: the stripe server answers requests")
     codec = StripeCodec(K, M, S_WRITE, device=dev)
     chunk_codec = StripeCodec(K, M, shard_size_of(CHUNK_BYTES, K), device=dev)
     rng = np.random.default_rng(5)
@@ -296,25 +383,18 @@ def serve(dev) -> dict:
                for _ in range(3)]
     requests = []
 
-    counted = {"gf2_matmul": gf2_matmul,
-               "gf2_matmul_bitslice": gf2_matmul_bitslice,
-               "crc32c_blocks": crc32c_blocks,
-               "crc32c_blocks_table": crc32c_blocks_table,
-               "xor_reduce_shards": _xor_reduce_shards}
-
     def request(name, fn):
-        before = {n: f.launches for n, f in counted.items()}
+        before = read_counts()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        after = read_counts()
         requests.append({"request": name,
                          "host_ms": (time.perf_counter() - t) * 1e3,
-                         **{n: f.launches - before[n]
-                            for n, f in counted.items()}})
+                         **{n: after[n] - before[n] for n in after}})
         return out
 
-    for f in counted.values():
-        f.launches = 0
+    zero_counts()
     written = [request(f"write batch {i}", lambda d=d: codec.encode_batch(d))
                for i, d in enumerate(batches)]
     shards, crcs = written[0]
@@ -367,7 +447,7 @@ def serve(dev) -> dict:
             [full[j].tobytes() for j in range(K)], len(chunk))
     cs, cc, full, again, assembled = request("4 MiB chunk write + degraded read",
                                              chunk_round_trip)
-    launches = {n: f.launches for n, f in counted.items()}
+    launches = read_counts()
 
     # answers are right: numpy gold, scalar CRC, restored bytes
     rs = codec.rs
@@ -390,20 +470,156 @@ def serve(dev) -> dict:
             "rebuilt shard's CRCs differ from the stored CRCs")
     require(np.array_equal(full, cs) and np.array_equal(again, cc)
             and assembled == chunk, "4 MiB chunk round trip differs")
-    for name in ("gf2_matmul", "crc32c_blocks", "xor_reduce_shards"):
-        require(launches[name] > 0, f"{name} was not launched on the main path")
-    for name in ("gf2_matmul_bitslice", "crc32c_blocks_table"):
-        require(launches[name] == 0,
-                f"{name} ran on the main path: every K1 and K2 launch there "
-                "must be a tensor-core launch")
+    require_main_path("the stripe server", launches,
+                      ("gf2_matmul", "crc32c_blocks", "xor_reduce"))
     del store, rebuilt
     log(json.dumps({"requests": requests}))
     log(f"main-path launches {launches} over {len(requests)} requests "
         f"({time.perf_counter() - t0:.1f} s)")
-    return launches, len(requests)
+    return launches
 
 
-# -- phase 6 -----------------------------------------------------------------
+# -- phase 7 -----------------------------------------------------------------
+def hops(dev, cmp: Compare):
+    """The codec's delta-parity and chain-encode hop ops on the card, held
+    against their plain versions on the CPU; logs their times and returns
+    the run's launch counts."""
+    from tpu3fs_torch.ops.crc32c import crc32c_xor
+    from tpu3fs_torch.ops.gf256 import GF
+    from tpu3fs_torch.ops.stripe import StripeCodec
+
+    t0 = phase("phase 7: chain-encode hops (delta_parity, hop_accumulate)")
+    codec = StripeCodec(K, M, S_WRITE, device=dev)
+    plain = StripeCodec(K, M, S_WRITE, device="cpu")
+    rng = np.random.default_rng(7)
+    B, S, j = B_WRITE, S_WRITE, 5
+    deltas = rng.integers(0, 256, (B, S), dtype=np.uint8)
+    lens = rng.integers(0, S + 1, B)
+    lens[:2] = (0, S)  # an empty and a full shard among the trimmed ones
+    payloads = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+                for n in lens]
+    start = rng.integers(0, 256, (B, M, S), dtype=np.uint8)
+
+    zero_counts()
+    delta = codec.delta_parity(j, deltas)
+    acc_np = start.copy()
+    crcs_np = codec.hop_accumulate(j, payloads, acc_np)
+    acc_dev = torch.tensor(start, device=dev)  # a copy
+    crcs_dev = codec.hop_accumulate(j, payloads, acc_dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require_main_path("the chain-encode hops", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+
+    want_delta = plain.delta_parity(j, deltas)
+    acc_cpu = start.copy()
+    want_crcs = plain.hop_accumulate(j, payloads, acc_cpu)
+    as_t = torch.from_numpy
+    cmp(as_t(delta), as_t(want_delta), "delta_parity")
+    cmp(as_t(acc_np), as_t(acc_cpu), "hop_accumulate, numpy accumulator")
+    cmp(acc_dev.cpu(), as_t(acc_cpu), "hop_accumulate, device accumulator")
+    want_crcs = as_t(want_crcs.astype(np.int64))
+    cmp(as_t(crcs_np.astype(np.int64)), want_crcs, "hop CRCs, numpy")
+    cmp(as_i64(crcs_dev).cpu(), want_crcs, "hop CRCs, device")
+    col = codec.rs.parity_delta_matrix(j)
+    gold = np.stack([GF.MUL_TABLE[int(c)][deltas[0]] for c in col[:, 0]])
+    require(np.array_equal(delta[0], gold), "delta rows differ from the gold")
+    # the hop CRC composes: crc(acc') = crc(acc) ^ crc(contribution) ^ crc(0)
+    before, after = codec.crc_batch(start[0]), codec.crc_batch(acc_np[0])
+    require(all(crc32c_xor(int(before[i]), int(crcs_np[0, i]), S)
+                == int(after[i]) for i in range(M)),
+            "hop CRCs do not compose to the accumulator's CRCs")
+
+    # times: the device-resident ops with CUDA events; the numpy and bytes
+    # requests on the host clock, ending in a synchronise
+    d_dev = torch.from_numpy(deltas).to(dev)
+
+    def hop_device():
+        contrib = codec.rs.gf_accumulate(j, d_dev, acc_dev)
+        return codec.crc_batch(contrib.reshape(B * M, S))
+
+    def host_ms(fn, n=3):
+        runs = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t) * 1e3)
+        return sorted(runs)[n // 2]
+
+    out = {
+        "delta_parity_device_ms": cuda_ms(lambda: codec.rs.delta_parity(j, d_dev), 30),
+        "delta_parity_bound_ms": (B * S + B * M * S) / HBM_BYTES_PER_S * 1e3,
+        "hop_device_ms": cuda_ms(hop_device, 30),
+        "hop_bound_ms": (B * S + 2 * B * M * S + 4 * B * M)
+        / HBM_BYTES_PER_S * 1e3,
+        "delta_parity_numpy_host_ms": host_ms(lambda: codec.delta_parity(j, deltas)),
+        "hop_bytes_device_acc_host_ms": host_ms(
+            lambda: codec.hop_accumulate(j, payloads, acc_dev)),
+        "hop_bytes_numpy_acc_host_ms": host_ms(
+            lambda: codec.hop_accumulate(j, payloads, acc_np)),
+        "shapes": "RS(12,4), j=5, B=12 stripes, S=1 MiB",
+    }
+    log(json.dumps({"hop_ops": out}))
+    log(f"hops: launches {counts}, {cmp.cases} comparisons equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+# -- phase 8 -----------------------------------------------------------------
+def multi_device(dev):
+    """dryrun_multichip, a checksummed chain write and a shuffle on a
+    one-rank NCCL group; logs the chain step's time and returns the run's
+    launch counts."""
+    import torch.distributed as dist
+
+    from tpu3fs_torch.entry import dryrun_chain_len, dryrun_multichip
+    from tpu3fs_torch.ops.crc32c import BatchCrc32c
+    from tpu3fs_torch.parallel import (backend_for, chain_write_step,
+                                       make_storage_mesh, shuffle_partitions)
+
+    t0 = phase("phase 8: the multi-device path on a one-rank NCCL group")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend_for(dev),
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = make_storage_mesh(dryrun_chain_len(1), device=dev)
+        crc = BatchCrc32c(S_WRITE, device=dev)
+        rows = rand_u8((B_WRITE, S_WRITE), 80, dev)
+        part = rand_u8((2, 4, 4096), 81, dev)
+        zero_counts()
+        t = time.perf_counter()
+        shape = dryrun_multichip(mesh)
+        replica, ok = chain_write_step(mesh, rows, crc_fn=crc)
+        shuffled = shuffle_partitions(mesh, part)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t) * 1e3
+        counts = read_counts()
+        require_main_path("the multi-device path", counts, ("crc32c_blocks",))
+        require(shape == (1, 1), f"dry run mesh {shape}, want (1, 1)")
+        require(bool(ok.all()) and torch.equal(replica[0], rows),
+                "chain write: replica or checksum cross-check differs")
+        require(torch.equal(shuffled, part), "one-rank shuffle moved rows")
+        out = {"host_ms": run_ms,
+               "chain_write_step_ms": cuda_ms(
+                   lambda: chain_write_step(mesh, rows, crc_fn=crc), 30),
+               "chain_write_step_bound_ms": 3 * B_WRITE * S_WRITE
+               / HBM_BYTES_PER_S * 1e3,
+               "shapes": "one rank, mesh (1, 1); chain write of 12 x 1 MiB "
+                         "rows, BatchCrc32c(1 MiB)"}
+    finally:
+        dist.destroy_process_group()
+    log(json.dumps({"multi_device": out}))
+    log(f"multi-device: launches {counts} ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+# -- phase 9 -----------------------------------------------------------------
 def mma_rates(dev) -> dict:
     """Issue rate of the two mma forms on register operands, every SM busy
     (csrc/mma_rate.cu): the card's data sheet has no 1-bit rate."""
@@ -424,15 +640,16 @@ def mma_rates(dev) -> dict:
     return rates
 
 
-def times(dev, launches: dict, cmp1: Compare, cmp2: Compare, n_requests: int):
+def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.gf256 import GF
     from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_bitslice,
                                              gf2_matmul_plain, prepare_matrix)
     from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c_blocks_table
-    from tpu3fs_torch.ops.rs import RSCode, _xor_reduce_shards
+    from tpu3fs_torch.ops.rs import RSCode
     from tpu3fs_torch.ops.stripe import StripeCodec
+    from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
 
-    phase("phase 6: times (CUDA events, after warm-up)")
+    phase("phase 9: times (CUDA events, after warm-up)")
     rs = RSCode(K, M, device=dev)
     B, S = B_WRITE, S_WRITE
     data = rand_u8((B, K, S), 11, dev)
@@ -461,7 +678,12 @@ def times(dev, launches: dict, cmp1: Compare, cmp2: Compare, n_requests: int):
     one_cols = prepare_matrix(GF.expand_to_bits(
         rs._reconstruct_matrix(tuple(range(1, K + 1)), (0,))), dev)
     dec1_ms = cuda_ms(lambda: gf2_matmul(one_cols, data), 30)
-    xor_ms = cuda_ms(lambda: _xor_reduce_shards(data), 30)
+    xort = turns(lambda: xor_reduce_plain(data), lambda: xor_reduce(data))
+    # the chain-encode hop's K1 shape (k = 1, o = 4): both kernels in turns
+    hop_cols = rs._delta_col(5)[1]
+    hop_data = rand_u8((B, 1, S), 14, dev)
+    hopt = turns(lambda: gf2_matmul_bitslice(hop_cols, hop_data),
+                 lambda: gf2_matmul(hop_cols, hop_data))
     cdata = rand_u8((1, K, S_CHUNK), 13, dev)
     chunk_ms = cuda_ms(lambda: gf2_matmul(rs._parity_cols, cdata), 50)
     rates = mma_rates(dev)
@@ -499,39 +721,44 @@ def times(dev, launches: dict, cmp1: Compare, cmp2: Compare, n_requests: int):
         "decode_4_loss_bitslice_ms": dec_old_ms, "decode_1_loss_ms": dec1_ms,
         "crc_GiB_s": gib(nrows * S, crct["new"]),
         "crc_table_GiB_s": gib(nrows * S, crct["old"]),
-        "xor_rebuild_GiB_s": gib(B * K * S, xor_ms),
+        "xor_rebuild_GiB_s": gib(B * K * S, xort["new"]),
+        "xor_rebuild_plain_GiB_s": gib(B * K * S, xort["old"]),
+        "xor_turns_ms": xort,
         "encode_4MiB_chunk_ms": chunk_ms,
+        "delta_k1_turns_ms": hopt,
         "write_request_ms": write_ms, "mma_rates": rates,
         "shapes": "RS(12,4), B=12 stripes, S=1 MiB; CRC over 192 shards of "
                   "1 MiB, block 512; chunk S=349,696",
     }))
-    log(json.dumps({"plain_torch_ops": [{
-        "name": "xor_reduce_shards (K3)", "replaces": "tpu3fs/ops/rs.py:42",
-        "launches": launches["xor_reduce_shards"],
-        "ms": xor_ms, "bound_ms": xor_bound, "bound_by": "bytes"}]}))
 
     def record(name, variant, source, replaces, cmp, ms, earlier_ms, plain,
-               bound, by):
+               bound, by, note=NO_LIBRARY):
+        """``earlier_ms``: the integer-unit kernel in the same run (K1, K2),
+        or the plain torch loop that K3 was before it had a kernel."""
+        by_path = {path: counts[name] for path, counts in paths.items()}
         return {"name": name, "variant": variant, "route": "cuda",
                 "source": source, "replaces": replaces,
-                "launches": launches[name],
-                "launches_per_request": launches[name] / n_requests,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "equal_to_plain": cmp.max_abs_err == 0,
                 "max_abs_err": cmp.max_abs_err, "ms": ms, "pr1_ms": earlier_ms,
                 "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                "library_ms": None, "library_note": NO_LIBRARY}
+                "library_ms": None, "library_note": note}
 
     k1 = ("tpu3fs_torch/csrc/gf2_matmul.cu", "tpu3fs/ops/pallas_rs.py:68")
     k2 = ("tpu3fs_torch/csrc/crc32c.cu", "tpu3fs/ops/crc32c.py:242")
+    k3 = ("tpu3fs_torch/csrc/xor_reduce.cu", "tpu3fs/ops/rs.py:42")
     return [
-        record("gf2_matmul", "tensor_core", *k1, cmp1, enc["new"], enc["old"],
-               enc_plain, k1_bound, k1_by),
-        record("gf2_matmul_bitslice", "bitslice", *k1, cmp1, enc["old"],
+        record("gf2_matmul", "tensor_core", *k1, cmps["K1"], enc["new"],
                enc["old"], enc_plain, k1_bound, k1_by),
-        record("crc32c_blocks", "tensor_core", *k2, cmp2, crct["new"],
+        record("gf2_matmul_bitslice", "bitslice", *k1, cmps["K1"], enc["old"],
+               enc["old"], enc_plain, k1_bound, k1_by),
+        record("crc32c_blocks", "tensor_core", *k2, cmps["K2"], crct["new"],
                crct["old"], crc_plain, k2_bound, k2_by),
-        record("crc32c_blocks_table", "table", *k2, cmp2, crct["old"],
+        record("crc32c_blocks_table", "table", *k2, cmps["K2"], crct["old"],
                crct["old"], crc_plain, k2_bound, k2_by),
+        record("xor_reduce", "one_pass", *k3, cmps["K3"], xort["new"],
+               xort["old"], xort["old"], xor_bound, "bytes", NO_XOR_LIBRARY),
     ]
 
 
@@ -542,11 +769,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     build()
-    cmp1, cmp2 = Compare(), Compare()
-    check_k1(dev, cmp1)
-    check_k2(dev, cmp2)
-    launches, n_requests = serve(dev)
-    kernels = times(dev, launches, cmp1, cmp2, n_requests)
+    cmps = {"K1": Compare(), "K2": Compare(), "K3": Compare()}
+    check_k1(dev, cmps["K1"])
+    check_k2(dev, cmps["K2"])
+    check_k3(dev, cmps["K3"])
+    paths = {"stripe_server": serve(dev)}
+    paths["hops"] = hops(dev, Compare())
+    paths["multi_device"] = multi_device(dev)
+    kernels = times(dev, paths, cmps)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

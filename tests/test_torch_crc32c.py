@@ -81,3 +81,45 @@ def test_bad_block_raises():
         tcrc.BatchCrc32c(1000, 512, device="cpu")
     with pytest.raises(ValueError):
         tcrc.BatchCrc32c(512, 512, device="cpu")(torch.zeros((2, 256), dtype=torch.uint8))
+
+
+def test_scalar_crc_matches_jax():
+    rng = np.random.default_rng(21)
+    for n in (0, 1, 9, 100, 4096):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert tcrc.crc32c(data) == jcrc.crc32c(data)
+        assert tcrc.crc32c(data[n // 2:], tcrc.crc32c(data[:n // 2])) == \
+            jcrc.crc32c(data)
+
+
+LENGTHS = [0, 1, 3, 4, 100, 512, 4093, 1 << 20]
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+def test_crc32c_zeros_matches_jax(length):
+    assert tcrc.crc32c_zeros(length) == jcrc.crc32c_zeros(length)
+    if length <= 4096:
+        assert tcrc.crc32c_zeros(length) == tcrc.crc32c_py(b"\x00" * length)
+
+
+@pytest.mark.parametrize("len_a,len_b", [(0, 0), (0, 7), (7, 0), (13, 100),
+                                         (512, 4093)])
+def test_crc32c_combine_matches_jax(len_a, len_b):
+    rng = np.random.default_rng(len_a * 7 + len_b)
+    a = rng.integers(0, 256, len_a, dtype=np.uint8).tobytes()
+    b = rng.integers(0, 256, len_b, dtype=np.uint8).tobytes()
+    ca, cb = tcrc.crc32c(a), tcrc.crc32c(b)
+    got = tcrc.crc32c_combine(ca, cb, len_b)
+    assert got == jcrc.crc32c_combine(ca, cb, len_b)
+    assert got == tcrc.crc32c_py(a + b)
+
+
+@pytest.mark.parametrize("length", [0, 1, 5, 256, 1000])
+def test_crc32c_xor_matches_jax(length):
+    rng = np.random.default_rng(length + 3)
+    a = rng.integers(0, 256, length, dtype=np.uint8)
+    b = rng.integers(0, 256, length, dtype=np.uint8)
+    ca, cb = tcrc.crc32c(a.tobytes()), tcrc.crc32c(b.tobytes())
+    got = tcrc.crc32c_xor(ca, cb, length)
+    assert got == jcrc.crc32c_xor(ca, cb, length)
+    assert got == tcrc.crc32c_py((a ^ b).tobytes())

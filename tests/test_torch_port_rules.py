@@ -43,6 +43,15 @@ def test_import_touches_no_cuda_and_no_triton():
     assert out.stdout.split() == ["False", "False", "0"]
 
 
+def test_import_parallel_starts_no_process_group():
+    code = ("import torch, torch.distributed as dist, tpu3fs_torch.parallel, "
+            "tpu3fs_torch.entry; "
+            "print(dist.is_initialized(), torch.cuda.is_initialized())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False"]
+
+
 def test_cpu_only_machine_raises_without_device():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

@@ -100,3 +100,66 @@ def test_get_codec_caches_per_device():
     a = tst.get_codec(4, 2, 512, device="cpu")
     assert tst.get_codec(4, 2, 512, device="cpu") is a
     assert a.device == torch.device("cpu")
+
+
+def test_delta_parity(codecs):
+    j, t = codecs
+    rng = np.random.default_rng(8)
+    for jj in (0, t.k - 1):
+        delta = rng.integers(0, 256, t.shard_size, dtype=np.uint8)
+        want = j.delta_parity(jj, delta)
+        got = t.delta_parity(jj, delta)
+        assert isinstance(got, np.ndarray) and got.shape == (t.m, t.shard_size)
+        assert np.array_equal(got, want)
+        assert np.array_equal(t.delta_parity(jj, delta.tobytes()), want)
+        got_t = t.delta_parity(jj, torch.from_numpy(delta))
+        assert isinstance(got_t, torch.Tensor)
+        assert np.array_equal(got_t.numpy(), want)
+    with pytest.raises(ValueError):
+        t.delta_parity(0, np.zeros(t.shard_size + 1, dtype=np.uint8))
+
+
+@pytest.mark.parametrize("acc_kind", ["numpy", "tensor"])
+def test_hop_accumulate_matches_jax(codecs, acc_kind):
+    """Trimmed payloads of ragged lengths; acc updated in place; the CRCs of
+    the contribution rows; every hop from zero composes to encode."""
+    j, t = codecs
+    S, rng = t.shard_size, np.random.default_rng(9)
+    stripes = rng.integers(0, 256, (4, t.k, S), dtype=np.uint8)
+    lens = [0, 1, S // 3, S]
+    acc_j = np.zeros((4, t.m, S), dtype=np.uint8)
+    acc_t = acc_j.copy() if acc_kind == "numpy" else torch.from_numpy(acc_j.copy())
+    trimmed = stripes.copy()
+    for jj in range(t.k):
+        for b, n in enumerate(lens):
+            trimmed[b, jj, n:] = 0
+        payloads = [stripes[b, jj, :n].tobytes() for b, n in enumerate(lens)]
+        want = j.hop_accumulate(jj, payloads, acc_j)
+        before = acc_t
+        got = t.hop_accumulate(jj, payloads, acc_t)
+        assert acc_t is before
+        if acc_kind == "numpy":
+            assert isinstance(got, np.ndarray) and got.dtype == np.uint32
+            got_acc = acc_t
+        else:
+            assert got.dtype == torch.uint32
+            got, got_acc = got.numpy(), acc_t.numpy()
+        assert np.array_equal(got, want)
+        assert np.array_equal(got_acc, acc_j)
+    assert np.array_equal(got_acc, j.rs.encode_np(trimmed))
+
+
+def test_hop_accumulate_rejects_bad_shapes(codecs):
+    _, t = codecs
+    with pytest.raises(ValueError):
+        t.hop_accumulate(0, [b"x"], np.zeros((2, t.m, t.shard_size), np.uint8))
+    with pytest.raises(ValueError):
+        t.hop_accumulate(0, [b"x" * (t.shard_size + 1)],
+                         np.zeros((1, t.m, t.shard_size), np.uint8))
+
+
+def test_crc_host(codecs):
+    j, t = codecs
+    for n in (0, 1, 77, t.shard_size):
+        shard = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+        assert t.crc_host(shard.tobytes()) == j.crc_host(shard.tobytes())

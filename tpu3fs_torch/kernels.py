@@ -36,6 +36,7 @@ _SIGNATURES = {
     "tpu3fs_crc32c_blocks": [_P, _P, _P, _I64, _I64, _I64, _P],
     "tpu3fs_crc32c_mma": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "tpu3fs_mma_rate": [_I64, _I64, _I64, _P, _P],
+    "tpu3fs_xor_reduce": [_P, _P, _I64, _I64, _I64, _P],
 }
 
 

@@ -1,5 +1,7 @@
-"""CRC32C (Castagnoli): scalar gold, the GF(2) block/shift matrices, and
-``BatchCrc32c`` with kernel K2.
+"""CRC32C (Castagnoli): scalar gold, the GF(2) block/shift matrices, the
+host composition helpers (``crc32c_combine``, ``crc32c_zeros``,
+``crc32c_xor``: 32x32 matrix powers on scalars), and ``BatchCrc32c`` with
+kernel K2.
 
 Counterpart of ``tpu3fs/ops/crc32c.py``. The CRC register update is affine
 over GF(2) in (state, message), so a row of N blocks of ``block`` bytes has
@@ -72,6 +74,13 @@ def crc32c_py(data: Union[bytes, bytearray, memoryview, np.ndarray],
     return _raw_update((crc & 0xFFFFFFFF) ^ _XOROUT, bytes(data)) ^ _XOROUT
 
 
+def crc32c(data: Union[bytes, bytearray, memoryview, np.ndarray],
+           crc: int = 0) -> int:
+    """The port's scalar host CRC32C (``crc32c_py``): one shard's stored
+    bytes, chainable via ``crc``."""
+    return crc32c_py(data, crc)
+
+
 @functools.lru_cache(maxsize=1)
 def _byte_shift_matrix() -> np.ndarray:
     """A: 32x32 GF(2) matrix advancing the register through one zero byte."""
@@ -79,6 +88,47 @@ def _byte_shift_matrix() -> np.ndarray:
     for i in range(32):
         A[:, i] = np_u32_to_bits(_raw_update(1 << i, b"\x00"))
     return A
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_matrix_pow(nbytes: int) -> np.ndarray:
+    """A^nbytes: advances the register through ``nbytes`` zero bytes."""
+    return np_mat2_pow(_byte_shift_matrix(), nbytes)
+
+
+def _shift(reg: int, nbytes: int) -> int:
+    bits = _shift_matrix_pow(int(nbytes)) @ np_u32_to_bits(reg).astype(np.int64)
+    return np_bits_to_u32(bits & 1)
+
+
+def crc32c_combine(crc_a: int, crc_b: int, len_b: int) -> int:
+    """CRC of concat(A, B) given crc32c(A), crc32c(B) and len(B) in bytes.
+
+    With F = 0xFFFFFFFF and S = A^len_b, crc(A||B) = S @ crc(A) XOR crc(B):
+    the F terms cancel by linearity."""
+    if len_b == 0:
+        return crc_a
+    return _shift(crc_a, len_b) ^ crc_b
+
+
+@functools.lru_cache(maxsize=64)
+def crc32c_zeros(length: int) -> int:
+    """CRC32C of ``length`` zero bytes, cached per length: the register
+    F = 0xFFFFFFFF shifted through ``length`` zero bytes, XOR F. A matrix
+    power, so a shard-sized length costs no byte loop."""
+    if length == 0:
+        return 0
+    return _shift(_XOROUT, length) ^ _XOROUT
+
+
+def crc32c_xor(crc_a: int, crc_b: int, length: int) -> int:
+    """CRC of A ^ B for equal-``length`` buffers given their CRCs.
+
+    CRC32C with init/xorout F is affine over GF(2): crc(X) = L(X) ^
+    f(length), L linear in the message bits, so crc(A ^ B) = crc(A) ^
+    crc(B) ^ crc(zeros(length)). A chain-encode hop CRCs only its
+    contribution and composes with this."""
+    return crc_a ^ crc_b ^ crc32c_zeros(length)
 
 
 @functools.lru_cache(maxsize=16)
@@ -214,18 +264,15 @@ class BatchCrc32c:
             raise ValueError(f"size {size} not a multiple of block {block}")
         nblocks = size // block
         B_T = _block_matrix(block).astype(np.int8)  # (8*blk, 32)
-        A_blk = np_mat2_pow(_byte_shift_matrix(), block)
+        A_blk = _shift_matrix_pow(block)
         # K[j] = A_blk^(nblocks-1-j): shifts block j's register to the end.
         Ks = np.zeros((nblocks, 32, 32), dtype=np.int8)
         cur = np.eye(32, dtype=np.uint8)
         for j in range(nblocks - 1, -1, -1):
             Ks[j] = cur
             cur = np_mat2_mul(A_blk, cur)
-        # init correction: raw register of `size` zero bytes with init F
-        z = np_bits_to_u32(
-            np_mat2_pow(_byte_shift_matrix(), size)
-            @ np_u32_to_bits(_XOROUT).astype(np.int64) & 1)
-        self._setup(B_T, Ks, np.uint32(z ^ _XOROUT), device)
+        # init correction: the CRC of `size` zero bytes
+        self._setup(B_T, Ks, np.uint32(crc32c_zeros(size)), device)
 
     @classmethod
     def from_arrays(cls, b_t: np.ndarray, ks: np.ndarray, const,

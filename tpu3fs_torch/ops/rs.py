@@ -4,8 +4,10 @@ Counterpart of ``tpu3fs/ops/rs.py``: the same systematic generator [I_k ; C]
 over GF(2^8), with C the Cauchy matrix column-normalised so that parity
 row 0 is all ones. Encode and every decode that is not a single-loss XOR
 apply a GF(2) bit matrix through kernel K1 (``ops/gf2_matmul.py``); a single
-loss covered by parity row 0 is the byte XOR of the k survivors (K3, plain
-torch).
+loss covered by parity row 0 is the byte XOR of the k survivors (kernel K3,
+``ops/xor_reduce.py``). The delta-parity and chain-encode hop primitives
+(``delta_parity``, ``gf_accumulate``) apply one parity column through K1
+with k = 1.
 
 Layouts: data shards are (..., k, S) uint8; parity (..., m, S); a "shard
 set" is the concatenation (..., k+m, S). S is the shard size in bytes.
@@ -21,20 +23,7 @@ import torch
 from tpu3fs_torch.device import as_tensor, resolve_device
 from tpu3fs_torch.ops.gf256 import GF
 from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, prepare_matrix
-
-
-def _xor_reduce_shards(shards: torch.Tensor) -> torch.Tensor:
-    """K3: (..., k, S) uint8 -> (..., 1, S), the XOR of the shard rows.
-    ``_xor_reduce_shards.launches`` counts calls (plain torch: k - 1 XOR
-    launches each)."""
-    out = shards[..., 0:1, :].clone()
-    for j in range(1, shards.shape[-2]):
-        out.bitwise_xor_(shards[..., j:j + 1, :])
-    _xor_reduce_shards.launches += 1
-    return out
-
-
-_xor_reduce_shards.launches = 0
+from tpu3fs_torch.ops.xor_reduce import xor_reduce
 
 
 def _gf_apply_np(M: np.ndarray, shards: np.ndarray) -> np.ndarray:
@@ -95,9 +84,10 @@ class RSCode:
             [np.eye(self.k, dtype=np.uint8), parity_matrix], axis=0)
         self._parity_bits = parity_bits
         self._parity_cols = prepare_matrix(parity_bits, self.device)
-        # per-instance caches keyed on (present, lost)
+        # per-instance caches keyed on (present, lost), and on j
         self._reconstruct_mats: dict = {}
         self._reconstruct_fns: dict = {}
+        self._delta_cols: dict = {}
 
     # -- encode ------------------------------------------------------------
     def encode(self, data) -> torch.Tensor:
@@ -113,6 +103,49 @@ class RSCode:
         if data.shape[-2] != self.k:
             raise ValueError(f"data {data.shape} for k={self.k}")
         return _gf_apply_np(self.parity_matrix, data)
+
+    # -- delta parity (sub-stripe RMW) and chain-encode hops ---------------
+    def parity_delta_matrix(self, j: int) -> np.ndarray:
+        """(m, 1) parity-coefficient column of data shard j, cached: a change
+        dD of shard j changes parity i by c_ij * dD."""
+        return self._delta_col(j)[0]
+
+    def _delta_col(self, j: int):
+        """(column, its (m, 1, 8) K1 operand on the device), cached per j."""
+        cached = self._delta_cols.get(j)
+        if cached is None:
+            if not 0 <= j < self.k:
+                raise ValueError(f"data shard index {j} out of range")
+            col = np.ascontiguousarray(self.parity_matrix[:, j:j + 1],
+                                       dtype=np.uint8)
+            cached = (col, prepare_matrix(GF.expand_to_bits(col), self.device))
+            self._delta_cols[j] = cached
+        return cached
+
+    def delta_parity(self, j: int, delta) -> torch.Tensor:
+        """Parity delta of a change on data shard j: (..., S) uint8 delta
+        (D' ^ D, zero-padded to the shard size) -> (..., m, S) rows to XOR
+        into the parity shards, on the codec's device. K1 with k = 1."""
+        x = as_tensor(delta, self.device)
+        return gf2_matmul(self._delta_col(j)[1], x.unsqueeze(-2).contiguous())
+
+    def gf_accumulate(self, j: int, data, acc) -> torch.Tensor:
+        """One chain-encode hop: XOR data shard j's contribution
+        ``C[:, j] * data`` into the parity accumulator ``acc`` IN PLACE and
+        return the contribution (a tensor on the codec's device).
+
+        ``data`` is (..., S) uint8; ``acc`` is (..., m, S) uint8, a numpy
+        array (written back into) or a tensor on the codec's device (updated
+        there). Accumulating over j = 0..k-1 from zero gives ``encode``."""
+        contrib = self.delta_parity(j, data)
+        if tuple(acc.shape) != tuple(contrib.shape):
+            raise ValueError(f"accumulator {tuple(acc.shape)}, contribution "
+                             f"{tuple(contrib.shape)}")
+        if isinstance(acc, torch.Tensor):
+            as_tensor(acc, self.device).bitwise_xor_(contrib)
+        else:
+            np.bitwise_xor(acc, contrib.cpu().numpy(), out=acc)
+        return contrib
 
     # -- decode ------------------------------------------------------------
     def _reconstruct_matrix(
@@ -145,7 +178,7 @@ class RSCode:
             if self._xor_rebuild_applies(present, lost):
                 # single loss covered by the all-ones parity row: the lost
                 # shard is the plain XOR of the k survivors
-                fn = _xor_reduce_shards
+                fn = xor_reduce
             else:
                 R = self._reconstruct_matrix(present, lost)
                 cols = prepare_matrix(GF.expand_to_bits(R), self.device)

@@ -4,6 +4,10 @@ Counterpart of ``tpu3fs/ops/stripe.py``. One stripe is one file chunk split
 into k data shards of S bytes plus m parity shards. Write is RS encode (K1)
 plus a CRC32C of every shard (K2); verify is the CRC; degraded read and
 rebuild are ``RSCode.reconstruct_fn`` (K1, or the K3 XOR for a single loss).
+A sub-stripe write's parity delta and a chain-encode hop apply one parity
+column through K1 (k = 1); the hop CRCs its contribution through K2. The
+JAX codec ran those two on host kernels; here they run on the codec's
+device like everything else.
 
 The codec runs on its device. It takes numpy arrays and returns numpy
 arrays, as the JAX codec does, or takes a tensor already on its device and
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from tpu3fs_torch.device import as_tensor, resolve_device
-from tpu3fs_torch.ops.crc32c import BatchCrc32c
+from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c
 from tpu3fs_torch.ops.rs import RSCode
 
 # codecs hold device matrices: share one per (k, m, S, device) per process
@@ -110,6 +114,45 @@ class StripeCodec:
         shards, crcs = self.encode_batch(data)
         return shards[:, self.k:], crcs
 
+    def delta_parity(self, j: int, delta):
+        """Parity-row deltas for a sub-stripe change on data shard j:
+        ``delta`` is D'_j ^ D_j zero-padded to S bytes (bytes, or an array of
+        S bytes) -> (m, S) rows to XOR into the stored parity shards
+        (``P'_i = P_i ^ c_ij * dD``). Leading batch dimensions pass through."""
+        as_np = not isinstance(delta, torch.Tensor)
+        if isinstance(delta, (bytes, bytearray, memoryview)):
+            delta = np.frombuffer(delta, dtype=np.uint8).copy()  # writable
+        if delta.shape[-1] != self.shard_size:
+            raise ValueError(f"delta {tuple(delta.shape)}, shard size "
+                             f"{self.shard_size}")
+        return _out(self.rs.delta_parity(j, delta), as_np)
+
+    def hop_accumulate(self, j: int, payloads, acc):
+        """One chain-encode hop over a stripe batch: XOR data shard j's
+        coefficient-scaled contribution into the parity accumulators and
+        return the contribution CRCs.
+
+        ``payloads`` is a length-B sequence of the hop's stored (trimmed)
+        shard-j bytes, one per stripe, each zero-padded here to S; ``acc``
+        is the (B, m, S) uint8 accumulator riding the chain, updated IN
+        PLACE: a numpy array is written back into, a tensor on the codec's
+        device is updated there. Returns the (B, m) uint32 CRC32Cs (K2) of
+        the contribution rows, numpy for a numpy ``acc``, for the per-hop
+        partial-CRC composition (``crc32c_xor``)."""
+        B, S = len(payloads), self.shard_size
+        if tuple(acc.shape) != (B, self.m, S):
+            raise ValueError(f"accumulator {tuple(acc.shape)}, want "
+                             f"({B}, {self.m}, {S})")
+        d = np.zeros((B, S), dtype=np.uint8)
+        for b, p in enumerate(payloads):
+            flat = np.frombuffer(p, dtype=np.uint8)
+            if flat.size > S:
+                raise ValueError(f"payload {b} has {flat.size} bytes, S = {S}")
+            d[b, :flat.size] = flat
+        contrib = self.rs.gf_accumulate(j, d, acc)
+        crcs = self._crc(contrib.reshape(B * self.m, S)).reshape(B, self.m)
+        return _out(crcs, not isinstance(acc, torch.Tensor))
+
     def encode_stripe(self, chunk: bytes) -> Tuple[np.ndarray, np.ndarray]:
         """One chunk (<= k*S bytes, zero-padded) -> ((k+m, S), (k+m,))."""
         buf = np.zeros((self.k, self.shard_size), dtype=np.uint8)
@@ -137,6 +180,11 @@ class StripeCodec:
         and trim the stripe padding to the chunk's logical length."""
         assert all(s is not None for s in data_shards)
         return b"".join(data_shards)[:length]
+
+    def crc_host(self, shard: bytes) -> int:
+        """Host CRC32C of one shard's stored (trimmed) bytes: the
+        ShardWriteReq.crc wire convention."""
+        return crc32c(shard)
 
 
 def trim_rebuilt_shard(
