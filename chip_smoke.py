@@ -21,10 +21,16 @@ Phases, in order (any failure exits non-zero):
      rebuild shape, k of 2, 7 and 12, a ragged S and an unaligned base;
   6. K4 and K5: the chain ring's fold checksum xor_fold_crc (a byte probe
      at every offset and base alignment, S % 4 of 0-3, S = 0, an unaligned
-     base, 12 x 1 MiB) and the placement scorer score_batch (pair probes
-     across the Gram's tiles, v of 1, 7, 13 and 180 x b of 2, 37 and 5760
-     x P of 1, 3 and 128, with and without domains, signed values, an
-     unaligned base, zero-size work), each against its plain version;
+     base, 12 x 1 MiB), the full-Gram placement scorer score_batch (pair
+     probes across the Gram's tiles, v of 1, 7, 13 and 180 x b of 2, 37 and
+     5760 x P of 1, 3 and 128, with and without domains, signed values, an
+     unaligned base, zero-size work), each against its plain version; then
+     the swap scorer swap_score (v = 180 at k of 3, 16 and 1, with 0, 18, 60
+     and 180 domains, invalid moves, an ssq past 2**31, max ties; P of 1, 3
+     and 128) against its plain version and the full-Gram kernel on the
+     materialised proposals, and swap_apply over 500 accepted moves (and 100
+     at the CR shape, 50 past 2**31), each state equal to its plain twin and
+     to a fresh build from the table after every move;
   7. the stripe server answering requests through StripeCodec(12, 4, 1 MiB):
      writes, a verify, degraded reads, a rebuild over a 1 GiB device store
      and a 4 MiB chunk;
@@ -39,18 +45,24 @@ Phases, in order (any failure exits non-zero):
      package on gloo ranks by tests/test_torch_parallel.py;
  10. chain-table placement through entry.gen_chain_table: the 180-node CR
      table (width 3, 96 targets per node: b = 5760 chains, 128 proposals a
-     step, 20 steps) and the EC(12,4) table (16 targets per node, 18 racks
-     of 10 nodes, at most 4 members of a chain per rack), each checked by
-     check_solution and equal, line for line, to the same seed's run with
-     the plain scorer on the card; steps, λ against its lower bound, and
-     one step's split (host proposals, copy in, K5, copy back);
+     step, 200 steps, the CLI's default) and the EC(12,4) table (16 targets
+     per node, 18 racks of 10 nodes, at most 4 members of a chain per rack,
+     200 steps), each checked by check_solution and equal, line for line,
+     to the same seed's run through the full-Gram route (proposals
+     materialised on the host, copied in and scored by score_batch), whose
+     first 20 steps also hold the swap kernel's scores against the full-Gram
+     kernel's; the card's state (M, G, hist, counts, scores) against a fresh
+     build from the final table; steps, λ against its lower bound, and one
+     CR step's split (draws, copy in, swap kernel, copy back, apply) beside
+     the full-Gram route's (proposals, copy in, score_batch, copy back);
  11. times with CUDA events at the main path's shapes, the earlier kernel
      (or the plain version) and the new one in turns, beside each kernel's
      bound and its plain version's time; the times of the hop ops and the
      one-rank chain step.
 Phases 7, 8, 9 and 10 are the main path: every kernel count is set to 0
 just before each and read just after; every K1 and K2 launch there must be
-a tensor-core one and every K3, K4 and K5 call a kernel launch.
+a tensor-core one and every K3, K4 and K5 call a kernel launch (K5 on the
+main path is the swap scorer; the full-Gram score_batch is its check).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -84,10 +96,16 @@ NO_FOLD_LIBRARY = ("torch has no XOR reduction: no single PyTorch call "
 NO_SCORE_LIBRARY = ("no single PyTorch call computes the fused score: the "
                     "Gram's off-diagonal max and sum of squares and the "
                     "domain overflow")
+NO_SWAP_LIBRARY = ("no single PyTorch call computes a proposal's scores "
+                   "from its swap (gathers of two rows of M and of G, "
+                   "histogram tests, the overflow of four counts)")
+NO_APPLY_LIBRARY = ("no single PyTorch call applies a swap to the table, its "
+                    "Gram, the Gram's histogram, the counts and the scores")
 # the reference deployment's storage cluster: 180 nodes x 16 SSDs, CR width
 # 3 at 6 targets per disk (96 per node); EC(12,4) at one target per disk
 # over 18 racks of 10 nodes, at most ec_m members of a chain per rack
-PLACE_NODES, CR_WIDTH, CR_TARGETS, CR_STEPS = 180, 3, 96, 20
+PLACE_NODES, CR_WIDTH, CR_TARGETS, PLACE_STEPS = 180, 3, 96, 200
+CHECKED_STEPS = 20  # steps whose swap scores are held against score_batch
 EC_K, EC_M, EC_TARGETS, RACKS = 12, 4, 16, 18
 
 
@@ -187,6 +205,8 @@ def counters() -> dict:
     from tpu3fs_torch.ops.crc32c import crc32c_blocks, crc32c_blocks_table
     from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, gf2_matmul_bitslice
     from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
+    from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
+                                             swap_score, swap_score_plain)
     from tpu3fs_torch.ops.xor_fold import xor_fold_crc, xor_fold_crc_plain
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
 
@@ -199,7 +219,11 @@ def counters() -> dict:
             "xor_fold_crc": (xor_fold_crc, "launches"),
             "xor_fold_crc_plain": (xor_fold_crc_plain, "calls"),
             "score_batch": (score_batch, "launches"),
-            "score_batch_plain": (score_batch_plain, "calls")}
+            "score_batch_plain": (score_batch_plain, "calls"),
+            "swap_score": (swap_score, "launches"),
+            "swap_score_plain": (swap_score_plain, "calls"),
+            "swap_apply": (swap_apply, "launches"),
+            "swap_apply_plain": (swap_apply_plain, "calls")}
 
 
 def read_counts() -> dict:
@@ -219,7 +243,8 @@ def require_main_path(path: str, counts: dict, launched) -> None:
         require(counts[name] > 0, f"{name} was not launched on {path}")
     for name in ("gf2_matmul_bitslice", "crc32c_blocks_table",
                  "xor_reduce_plain", "xor_fold_crc_plain",
-                 "score_batch_plain"):
+                 "score_batch_plain", "swap_score_plain",
+                 "swap_apply_plain"):
         require(counts[name] == 0,
                 f"{name} ran on {path}: every K1 and K2 launch there must "
                 "be a tensor-core launch and every K3, K4 and K5 call a "
@@ -516,6 +541,125 @@ def check_k4_k5(dev, cmp4: Compare, cmp5: Compare) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def random_table(b: int, v: int, k: int, seed: int) -> np.ndarray:
+    """(b, v) int8: each row k distinct nodes drawn from a seed."""
+    rng = np.random.default_rng(seed)
+    M = np.zeros((b, v), dtype=np.int8)
+    M[np.arange(b)[:, None], rng.random((b, v)).argsort(axis=1)[:, :k]] = 1
+    return M
+
+
+def rack_index(v: int, racks: int) -> np.ndarray:
+    return (np.arange(v) * racks // v).astype(np.int32)
+
+
+def moves_on(moves, dev) -> torch.Tensor:
+    """A step's moves as the solver sends them: one int32 (5, P) tensor."""
+    return torch.from_numpy(np.stack(moves).astype(np.int32)).to(dev)
+
+
+def state_parts(state) -> dict:
+    return {n: getattr(state, n) for n in ("M", "G", "hist", "counts", "score")
+            if getattr(state, n) is not None}
+
+
+def check_k5_swap(dev, cmp_score: Compare, cmp_apply: Compare) -> None:
+    """The swap scorer's two kernels against their plain versions; the
+    scores also against the full-Gram kernel on the materialised proposals,
+    and the applied states against a fresh build from the table."""
+    from tpu3fs_torch.ops.placement_score import score_batch
+    from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
+                                             swap_score, swap_score_plain,
+                                             swap_state)
+    from tpu3fs_torch.placement import PlacementProblem, solver
+
+    t0 = time.perf_counter()
+    log("phase 6: K5's swap scorer (swap_score, swap_apply) against their "
+        "plain versions")
+    greedy_cr = solver._greedy_incidence(PlacementProblem(
+        num_nodes=PLACE_NODES, group_size=CR_WIDTH,
+        targets_per_node=CR_TARGETS))
+    v = PLACE_NODES
+    cases = [  # label, table, domain index, cap
+        ("k=3 b=5760", random_table(5760, v, 3, 1), None, 0),
+        ("k=3 b=5760, 18 racks", random_table(5760, v, 3, 2),
+         rack_index(v, RACKS), 1),
+        ("k=3 b=5760, 60 domains", random_table(5760, v, 3, 3),
+         rack_index(v, 60), 1),
+        ("greedy CR table (max ties)", greedy_cr, None, 0),
+        ("k=16 b=180", random_table(180, v, 16, 4), None, 0),
+        ("k=16 b=180, 18 racks", random_table(180, v, 16, 5),
+         rack_index(v, RACKS), EC_M),
+        ("k=16 b=180, 18 racks, cap 1", random_table(180, v, 16, 6),
+         rack_index(v, RACKS), 1),
+        ("k=16 b=180, 180 domains", random_table(180, v, 16, 7),
+         np.arange(v, dtype=np.int32), 1),
+        ("k=1 b=180", random_table(180, v, 1, 8), None, 0),
+        ("k=1 b=180, 18 racks", random_table(180, v, 1, 9),
+         rack_index(v, RACKS), 0),
+        ("duplicated rows (invalid moves), 18 racks",
+         np.repeat(random_table(6, v, 16, 10), 2, axis=0),
+         rack_index(v, RACKS), EC_M),
+        ("ssq past 2**31: k=8 v=16 b=20000", random_table(20000, 16, 8, 11),
+         None, 0),
+    ]
+    rng = np.random.default_rng(12)
+    for label, M, dom, cap in cases:
+        state = swap_state(M, dom, cap, dev)
+        dom_t = None if dom is None else torch.from_numpy(dom).to(dev)
+        for P in (1, 3, 128):
+            moves = solver._propose_moves(M, rng, P)
+            mt = moves_on(moves, dev)
+            n = swap_score.launches
+            got = swap_score(state, mt)
+            require(swap_score.launches == n + 1,
+                    f"{label} P={P}: the swap kernel did not launch")
+            cmp_score(got, swap_score_plain(state, mt), f"{label} P={P}")
+            cand = torch.from_numpy(solver._materialise(M, moves)).to(dev)
+            cmp_score(got, torch.stack(score_batch(cand, dom_t, cap)),
+                      f"{label} P={P}: against the full-Gram kernel")
+        if label.startswith("ssq past"):
+            require(int(state.score[2]) >= 1 << 31,
+                    f"{label}: the state's ssq does not pass 2**31")
+    n = swap_score.launches
+    empty = swap_score(state, torch.zeros((5, 0), dtype=torch.int32,
+                                          device=dev))
+    require(empty.shape == (3, 0) and swap_score.launches == n,
+            "a zero-size swap score launched")
+    torch.cuda.synchronize()
+    log(f"K5 swap_score: {cmp_score.cases} comparisons equal")
+
+    for label, M, dom, cap, n_moves in [
+            ("k=16 b=180, 18 racks", random_table(180, v, 16, 13),
+             rack_index(v, RACKS), EC_M, 500),
+            ("k=3 b=5760", random_table(5760, v, 3, 14), None, 0, 100),
+            ("ssq past 2**31", random_table(20000, 16, 8, 15), None, 0, 50)]:
+        M = M.copy()
+        kernel_state = swap_state(M, dom, cap, dev)
+        plain_state = swap_state(M, dom, cap, dev)
+        n = swap_apply.launches
+        for i in range(n_moves):
+            moves = solver._propose_moves(M, rng, 8)
+            p = int(np.argmax(moves.valid))
+            require(moves.valid[p], f"{label}: no valid move drawn")
+            mt = moves_on(moves, dev)
+            swap_apply(kernel_state, mt, p)
+            swap_apply_plain(plain_state, mt, p)
+            g1, g2, a, c = (int(x[p]) for x in moves[:4])
+            M[g1, a], M[g1, c], M[g2, c], M[g2, a] = 0, 1, 0, 1
+            fresh = state_parts(swap_state(M, dom, cap, dev))
+            kern, plain = state_parts(kernel_state), state_parts(plain_state)
+            for part, want in fresh.items():
+                cmp_apply(kern[part], plain[part], f"{label} move {i} {part}")
+                cmp_apply(kern[part], want, f"{label} move {i} {part}: fresh")
+        require(swap_apply.launches == n + n_moves,
+                f"{label}: the apply kernel launched "
+                f"{swap_apply.launches - n} times for {n_moves} moves")
+    torch.cuda.synchronize()
+    log(f"K5 swap_apply: {cmp_apply.cases} comparisons equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 # -- phase 7 -----------------------------------------------------------------
 def serve(dev) -> dict:
     """The stripe server answers requests; returns launch counts per request."""
@@ -784,92 +928,265 @@ def incidence_of_lines(lines, nodes: int) -> np.ndarray:
     return M
 
 
-def placement(dev) -> dict:
+def device_time_per_step(dev, problem, steps: int, host_ms_per_step: float):
+    """Device time of one annealing step by kind (the swap kernels, the
+    copies), from a torch.profiler trace of a ``steps``-step solve, and the
+    share of the main-path run's step time the device is busy. The trace
+    also holds the solve's set-up copies (the table, its Gram), so the
+    copies' time a step is an upper bound. None where the profiler sees
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3fs_torch.placement import solve_placement
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve_placement(problem, steps=steps, device=dev)
+        torch.cuda.synchronize()
+    by_kind = {"swap_score_kernel": 0.0, "swap_apply_kernel": 0.0,
+               "memcpy": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        kind = next((k for k in by_kind if k in e.key), None)
+        if kind is None:
+            kind = "memcpy" if "memcpy" in e.key.lower() else "other"
+        by_kind[kind] += us / 1e3 / steps
+    busy = sum(by_kind.values())
+    if busy == 0:
+        return None
+    return {"ms_per_step": by_kind, "busy_ms_per_step": busy,
+            "steps_traced": steps,
+            "device_busy_share": busy / host_ms_per_step}
+
+
+def placement(dev, cmp: Compare) -> dict:
     """The CR and EC chain tables through entry.gen_chain_table, each
-    checked and held against the plain scorer's run; one step's split.
-    Returns the two runs' launch counts, summed."""
+    checked and held against the full-Gram route's run of the same seed;
+    the card's state against the final table; one CR step's split on both
+    routes. Returns the two main-path runs' launch counts, summed."""
     from unittest import mock
 
     import tpu3fs_torch.placement.solver as solver
     from tpu3fs_torch.entry import gen_chain_table
-    from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
+    from tpu3fs_torch.ops.placement_score import score_batch
+    from tpu3fs_torch.ops.swap_score import (swap_apply, swap_score,
+                                             swap_state)
     from tpu3fs_torch.placement import PlacementProblem, check_solution
 
     t0 = phase("phase 10: chain-table placement through entry.gen_chain_table")
     racks = [f"rack{i * RACKS // PLACE_NODES}" for i in range(PLACE_NODES)]
     tables = {
-        "cr": (CR_WIDTH, CR_TARGETS, dict(steps=CR_STEPS),
+        "cr": (CR_WIDTH, CR_TARGETS, dict(steps=PLACE_STEPS),
                dict(chain_table_type="CR")),
         "ec": (EC_K + EC_M, EC_TARGETS,
-               dict(ec_k=EC_K, ec_m=EC_M, domains=racks, max_per_domain=EC_M),
+               dict(steps=PLACE_STEPS, ec_k=EC_K, ec_m=EC_M, domains=racks,
+                    max_per_domain=EC_M),
                dict(chain_table_type="EC", domains=racks,
                     max_per_domain=EC_M)),
     }
+
+    def full_gram_route(name, width, targets, gen, dom_t, cap):
+        """The same solve with each step's proposals materialised on the
+        host, copied in whole and scored by score_batch (the port's route
+        before the swap scorer); the first CHECKED_STEPS steps also score
+        the moves with the swap kernel, which must agree."""
+        step = {"n": 0}
+        real_moves = solver._propose_moves
+
+        def propose_moves(M, rng, P):
+            moves = real_moves(M, rng, P)
+            step["M"], step["moves"] = M, moves  # the solver's host table
+            return moves
+
+        def score(state, moves_dev):
+            cand = solver._materialise(step["M"], step["moves"])
+            full = torch.stack(score_batch(torch.from_numpy(cand).to(dev),
+                                           dom_t, cap))
+            if step["n"] < CHECKED_STEPS:
+                cmp(swap_score(state, moves_dev), full,
+                    f"{name} step {step['n']}: swap kernel vs score_batch")
+            step["n"] += 1
+            return full
+
+        with mock.patch.object(solver, "_propose_moves", propose_moves), \
+                mock.patch.object(solver, "swap_score", score):
+            t = time.perf_counter()
+            lines = gen_chain_table(PLACE_NODES, width, targets, device=dev,
+                                    **gen)
+            torch.cuda.synchronize()
+        return lines, time.perf_counter() - t, step["n"]
+
     total, out = {}, {}
     for name, (width, targets, gen, prob) in tables.items():
-        zero_counts()
-        t = time.perf_counter()
-        lines = gen_chain_table(PLACE_NODES, width, targets, device=dev, **gen)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t
-        counts = read_counts()
-        require_main_path(f"the {name} placement", counts, ("score_batch",))
-        total = {n: total.get(n, 0) + c for n, c in counts.items()}
-        with mock.patch.object(solver, "score_batch", score_batch_plain):
-            t = time.perf_counter()
-            ref = gen_chain_table(PLACE_NODES, width, targets, device=dev,
-                                  **gen)
-            ref_s = time.perf_counter() - t
-        require(lines == ref, f"{name}: the table differs from the plain "
-                "scorer's run of the same seed")
         problem = PlacementProblem(num_nodes=PLACE_NODES, group_size=width,
                                    targets_per_node=targets, **prob)
+        labels = solver._domain_index(problem)
+        cap = EC_M if labels is not None else 0
+        states = []
+
+        def keep_state(*args, **kw):
+            states.append(swap_state(*args, **kw))
+            return states[-1]
+
+        zero_counts()
+        with mock.patch.object(solver, "swap_state", keep_state):
+            t = time.perf_counter()
+            lines = gen_chain_table(PLACE_NODES, width, targets, device=dev,
+                                    **gen)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+        counts = read_counts()
+        require_main_path(f"the {name} placement", counts,
+                          ("swap_score", "swap_apply"))
+        total = {n: total.get(n, 0) + c for n, c in counts.items()}
+        steps = counts["swap_score"]
         M = incidence_of_lines(lines, PLACE_NODES)
         require(check_solution(M, problem),
                 f"{name}: the table fails check_solution")
+        # the card's state after the run is the final table's
+        state = states[0]
+        Mf = torch.from_numpy(M).to(dev).to(torch.float32)
+        gram = (Mf.T @ Mf).to(torch.int32)
+        gram.fill_diagonal_(0)
+        cmp(state.G, gram, f"{name}: the card's G against M^T M")
+        cmp(state.M, torch.from_numpy(M).to(dev), f"{name}: the card's M")
+        fresh = state_parts(swap_state(M, labels, cap, dev))
+        for part, want in state_parts(state).items():
+            cmp(want, fresh[part], f"{name}: the card's {part}, fresh build")
+
+        dom_t = None if labels is None else torch.from_numpy(labels).to(dev)
+        ref, ref_s, ref_steps = full_gram_route(name, width, targets, gen,
+                                                dom_t, cap)
+        require(lines == ref, f"{name}: the table differs from the full-Gram "
+                "route's run of the same seed")
+        require(ref_steps == steps, f"{name}: {steps} steps, the full-Gram "
+                f"route {ref_steps}")
         greedy = solver._greedy_incidence(problem)
-        steps = counts["score_batch"]
         out[name] = {
             "chains": len(M), "nodes": PLACE_NODES, "width": width,
             "targets_per_node": targets, "command_lines": len(lines),
-            "steps": steps, "lambda_max": solver._score_np(M)[0],
+            "steps": steps, "accepted": counts["swap_apply"],
+            "lambda_max": solver._score_np(M)[0],
             "greedy_lambda_max": solver._score_np(greedy)[0],
             "lambda_lower_bound": problem.lambda_lower_bound,
             "domain_overflow": solver.domain_overflow(M, problem),
             "greedy_domain_overflow": solver.domain_overflow(greedy, problem),
             "host_s": run_s, "host_ms_per_step": run_s * 1e3 / max(steps, 1),
-            "plain_scorer_host_s": ref_s}
+            "full_gram_route_host_s": ref_s,
+            "full_gram_route_host_ms_per_step": ref_s * 1e3 / max(steps, 1),
+            "steps_checked_against_score_batch": min(steps, CHECKED_STEPS)}
 
-    # one CR step's split: proposals on the host, the copy in, K5, the copy
-    # back (host clock, each part ending in a synchronise; K5 also by
-    # events); the first of 6 steps is dropped
+    # one CR step's split on each route (host clock, each part ending in a
+    # synchronise; the kernels also by events); the first of 6 steps is
+    # dropped and the median of the other 5 kept. The swap route stages
+    # its moves and scores in pinned memory, as the solver does; the
+    # pageable copies are timed beside them
     problem = PlacementProblem(num_nodes=PLACE_NODES, group_size=CR_WIDTH,
                                targets_per_node=CR_TARGETS)
     M = solver._greedy_incidence(problem)
+    state = swap_state(M, None, 0, dev)
     rng = np.random.default_rng(1)
-    parts = {"propose_ms": [], "copy_in_ms": [], "k5_ms": [],
-             "k5_event_ms": [], "copy_back_ms": []}
+    moves_host = torch.empty((5, 128), dtype=torch.int32, pin_memory=True)
+    scores_host = torch.empty((3, 128), dtype=torch.int32, pin_memory=True)
+    swap_parts = {"draws_ms": [], "copy_in_ms": [], "swap_kernel_ms": [],
+                  "swap_kernel_event_ms": [], "copy_back_ms": [],
+                  "apply_ms": [], "step_ms": [], "copy_in_pageable_ms": [],
+                  "copy_back_pageable_ms": []}
+    full_parts = {"propose_ms": [], "copy_in_ms": [], "score_batch_ms": [],
+                  "score_batch_event_ms": [], "copy_back_ms": [],
+                  "step_ms": []}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    stream = torch.cuda.current_stream(dev)
     for _ in range(6):
+        t = time.perf_counter()
+        moves = solver._propose_moves(M, rng, 128)
+        moves_host.numpy()[:] = np.stack(moves)
+        t1 = time.perf_counter()
+        mt = moves_host.to(dev, non_blocking=True)
+        stream.synchronize()
+        t2 = time.perf_counter()
+        ev[0].record()
+        scores = swap_score(state, mt)
+        ev[1].record()
+        stream.synchronize()
+        t3 = time.perf_counter()
+        scores_host.copy_(scores, non_blocking=True)
+        stream.synchronize()
+        overs, maxs, ssqs = scores_host.numpy()
+        t4 = time.perf_counter()
+        p = int(np.lexsort((ssqs, maxs, overs))[0])
+        swap_apply(state, mt, p)
+        stream.synchronize()
+        t5 = time.perf_counter()
+        if moves.valid[p]:
+            g1, g2, a, c = (int(x[p]) for x in moves[:4])
+            M[g1, a], M[g1, c], M[g2, c], M[g2, a] = 0, 1, 0, 1
+        packed = moves_host.numpy().copy()
+        t6 = time.perf_counter()
+        torch.from_numpy(packed).to(dev)
+        stream.synchronize()
+        t7 = time.perf_counter()
+        scores.cpu()
+        t8 = time.perf_counter()
+        for part, ms in zip(swap_parts, (
+                (t1 - t) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                ev[0].elapsed_time(ev[1]), (t4 - t3) * 1e3, (t5 - t4) * 1e3,
+                (t5 - t) * 1e3, (t7 - t6) * 1e3, (t8 - t7) * 1e3)):
+            swap_parts[part].append(ms)
+
         t = time.perf_counter()
         cand = solver._propose(M, rng, 128)
         t1 = time.perf_counter()
         x = torch.from_numpy(cand).to(dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        scores = score_batch(x)
+        full = score_batch(x)
         ev[1].record()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        torch.stack(scores).cpu().numpy()
+        torch.stack(full).cpu().numpy()
         t4 = time.perf_counter()
-        for part, ms in zip(parts, ((t1 - t) * 1e3, (t2 - t1) * 1e3,
-                                    (t3 - t2) * 1e3, ev[0].elapsed_time(ev[1]),
-                                    (t4 - t3) * 1e3)):
-            parts[part].append(ms)
-    out["cr_step_split"] = {part: sorted(v[1:])[2] for part, v in parts.items()}
-    out["cr_step_split"]["proposals_bytes"] = int(cand.nbytes)
+        for part, ms in zip(full_parts, (
+                (t1 - t) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                ev[0].elapsed_time(ev[1]), (t4 - t3) * 1e3, (t4 - t) * 1e3)):
+            full_parts[part].append(ms)
+    # the step's two copies staged in pinned and in pageable memory, in
+    # turns (pageable, pinned, pinned, pageable), 50 copies each, host clock
+    def copy_ms(copy):
+        copy()
+        stream.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            copy()
+            stream.synchronize()
+        return (time.perf_counter() - t) * 1e3 / 50
+
+    copies = {
+        "in_pageable": lambda: torch.from_numpy(packed).to(dev),
+        "in_pinned": lambda: moves_host.to(dev, non_blocking=True),
+        "back_pageable": lambda: scores.cpu(),
+        "back_pinned": lambda: scores_host.copy_(scores, non_blocking=True)}
+    copy_turns = {name: [] for name in copies}
+    for order in (0, 1, 1, 0):
+        for way in ("in", "back"):
+            kinds = ("pageable", "pinned") if order == 0 else ("pinned",
+                                                                "pageable")
+            for kind in kinds:
+                copy_turns[f"{way}_{kind}"].append(
+                    copy_ms(copies[f"{way}_{kind}"]))
+    median = lambda runs: sorted(runs[1:])[len(runs[1:]) // 2]  # noqa: E731
+    out["cr_step_split"] = {part: median(v) for part, v in swap_parts.items()}
+    out["cr_step_split"]["moves_bytes"] = int(packed.nbytes)
+    out["cr_copy_turns_ms"] = copy_turns
+    out["cr_step_split_full_gram"] = {part: median(v)
+                                      for part, v in full_parts.items()}
+    out["cr_step_split_full_gram"]["proposals_bytes"] = int(cand.nbytes)
+    out["cr_device_time"] = device_time_per_step(dev, problem, 40,
+                                                 out["cr"]["host_ms_per_step"])
     log(json.dumps({"placement": out}))
     log(f"placement: CR {out['cr']['steps']} steps, λ {out['cr']['lambda_max']}"
         f" (greedy {out['cr']['greedy_lambda_max']}, lower bound "
@@ -877,8 +1194,8 @@ def placement(dev) -> dict:
         f"λ {out['ec']['lambda_max']} (greedy "
         f"{out['ec']['greedy_lambda_max']}, lower bound "
         f"{out['ec']['lambda_lower_bound']}), overflow "
-        f"{out['ec']['domain_overflow']}; launches {total} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{out['ec']['domain_overflow']}; {cmp.cases} comparisons equal; "
+        f"launches {total} ({time.perf_counter() - t0:.1f} s)")
     return total
 
 
@@ -903,6 +1220,126 @@ def mma_rates(dev) -> dict:
     return rates
 
 
+def turns(old, new, timer=cuda_ms):
+    """The earlier kernel and the new one in turns: old, new, new, old."""
+    t = [timer(old, 30), timer(new, 30), timer(new, 30), timer(old, 30)]
+    return {"new_ms": [t[1], t[2]], "old_ms": [t[0], t[3]],
+            "new": (t[1] + t[2]) / 2, "old": (t[0] + t[3]) / 2}
+
+
+def k5_times(dev) -> dict:
+    """K5's kernels on one annealing step at the placement runs' shapes,
+    beside their bounds."""
+    from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
+    from tpu3fs_torch.ops.swap_score import (gram_np, swap_apply,
+                                             swap_apply_plain, swap_score,
+                                             swap_score_plain, swap_state)
+    from tpu3fs_torch.placement import PlacementProblem, solver
+
+    # K5 on one annealing step: the full-Gram kernel on the materialised
+    # proposals, the CR table's (128, 5760, 180) and the EC table's
+    # (128, 180, 180) with its 18 racks, and the swap kernel on the same
+    # step's moves and state, in turns; each eagerly (the host's enqueue
+    # shows) and the swap kernels also replayed from a CUDA graph
+    cr = PlacementProblem(num_nodes=PLACE_NODES, group_size=CR_WIDTH,
+                          targets_per_node=CR_TARGETS)
+    rng = np.random.default_rng(3)
+    cr_table = solver._greedy_incidence(cr)
+    cr_moves = solver._propose_moves(cr_table, rng, 128)
+    cand = torch.from_numpy(solver._materialise(cr_table, cr_moves)).to(dev)
+    cr_state = swap_state(cr_table, None, 0, dev)
+    cr_mt = moves_on(cr_moves, dev)
+    k5t = turns(lambda: score_batch_plain(cand), lambda: score_batch(cand))
+    swapt = turns(lambda: score_batch(cand), lambda: swap_score(cr_state, cr_mt))
+    swap_graph = graph_ms(lambda: swap_score(cr_state, cr_mt), 100)
+    swap_plain = cuda_ms(lambda: swap_score_plain(cr_state, cr_mt), 10)
+    racks = [f"rack{i * RACKS // PLACE_NODES}" for i in range(PLACE_NODES)]
+    ec = PlacementProblem(num_nodes=PLACE_NODES, group_size=EC_K + EC_M,
+                          targets_per_node=EC_TARGETS, chain_table_type="EC",
+                          domains=racks, max_per_domain=EC_M)
+    ec_table = solver._greedy_incidence(ec)
+    ec_moves = solver._propose_moves(ec_table, rng, 128)
+    ec_cand = torch.from_numpy(solver._materialise(ec_table, ec_moves)).to(dev)
+    ec_labels = solver._domain_index(ec)
+    ec_dom = torch.from_numpy(ec_labels).to(dev)
+    ec_state = swap_state(ec_table, ec_labels, EC_M, dev)
+    ec_mt = moves_on(ec_moves, dev)
+    k5_ec = turns(lambda: score_batch_plain(ec_cand, ec_dom, EC_M),
+                  lambda: score_batch(ec_cand, ec_dom, EC_M))
+    swap_ec = turns(lambda: score_batch(ec_cand, ec_dom, EC_M),
+                    lambda: swap_score(ec_state, ec_mt))
+    swap_ec_graph = graph_ms(lambda: swap_score(ec_state, ec_mt), 100)
+    # the apply kernel on the CR state: a valid move and its reverse in
+    # turns, so the state comes back after every pair
+    p = int(np.argmax(cr_moves.valid))
+    g1, g2, a, c = (int(x[p]) for x in cr_moves[:4])
+    pair = torch.tensor([[g1, g1], [g2, g2], [a, c], [c, a], [1, 1]],
+                        dtype=torch.int32, device=dev)
+
+    def apply_pair(apply=swap_apply):
+        apply(cr_state, pair, 0)
+        apply(cr_state, pair, 1)
+    apply_eager = cuda_ms(apply_pair, 30) / 2
+    apply_graph = graph_ms(apply_pair, 50) / 2
+    apply_plain = cuda_ms(lambda: apply_pair(swap_apply_plain), 10) / 2
+    fresh = state_parts(swap_state(cr_table, None, 0, dev))
+    for part, got in state_parts(cr_state).items():
+        require(torch.equal(got, fresh[part]),
+                f"the timed apply pairs left the CR state's {part} changed")
+    changed = int((cr_table[g1] != cr_table[g2]).sum()) - 2  # d != 0 off a, c
+    P5, b5, v5 = cand.shape
+    k5_bound, k5_by = bound_ms(cand.numel() + 3 * 4 * P5, 2 * P5 * b5 * v5 * v5)
+    Pe, be, ve = ec_cand.shape
+    k5_ec_bound, k5_ec_by = bound_ms(ec_cand.numel() + 4 * ve + 3 * 4 * Pe,
+                                     2 * Pe * be * ve * ve)
+
+    def swap_bytes(moves, v, domains):
+        """What one swap_score call must move for these moves: the distinct
+        rows of M and of G they name, the moves, the scores, the state and
+        hist[max], and with domains 2 domain labels and 4 counts a move."""
+        val = moves.valid
+        P = len(val)
+        m_rows = np.unique(np.r_[moves.g1[val], moves.g2[val]]).size
+        g_rows = np.unique(np.r_[moves.a[val], moves.c[val]]).size
+        return (m_rows * v + g_rows * 4 * v + 20 * P + 12 * P + 24 + 4
+                + (24 * int(val.sum()) if domains else 0))
+    swap_bound, swap_by = bound_ms(swap_bytes(cr_moves, v5, False), 0)
+    swap_no_reuse = P5 * 10 * v5 / HBM_BYTES_PER_S * 1e3  # 2 + 8 v a move
+    swap_ec_bound, _ = bound_ms(swap_bytes(ec_moves, ve, True), 0)
+    # the apply: rows g1 and g2 of M read, G read and written at each node
+    # whose pair changes (4 words), the hist bins they leave and reach, 4
+    # entries of M, the move and the state
+    gram = gram_np(cr_table)
+    x = np.setdiff1d(np.flatnonzero(cr_table[g1] != cr_table[g2]), [a, c])
+    d = cr_table[g2, x].astype(np.int64) - cr_table[g1, x]
+    bins = np.unique(np.r_[gram[a, x], gram[c, x], gram[a, x] + d,
+                           gram[c, x] - d])
+    apply_bound, apply_by = bound_ms(
+        2 * v5 + 8 * x.size + 16 * x.size + 8 * bins.size + 4 + 20 + 48, 0)
+    return {
+        "score_cr_turns_ms": k5t, "score_cr_bound_ms": k5_bound,
+        "score_cr_bound_by": k5_by,
+        "score_cr_GB_s": cand.numel() / 1e9 / (k5t["new"] / 1e3),
+        "score_ec_turns_ms": k5_ec, "score_ec_bound_ms": k5_ec_bound,
+        "score_ec_bound_by": k5_ec_by,
+        "swap_cr_turns_ms": swapt, "swap_cr_graph_ms": swap_graph,
+        "swap_cr_plain_ms": swap_plain, "swap_cr_bound_ms": swap_bound,
+        "swap_cr_bound_by": swap_by,
+        "swap_cr_bound_no_reuse_ms": swap_no_reuse,
+        "swap_ec_turns_ms": swap_ec, "swap_ec_graph_ms": swap_ec_graph,
+        "swap_ec_bound_ms": swap_ec_bound,
+        "apply_eager_ms": apply_eager, "apply_graph_ms": apply_graph,
+        "apply_plain_ms": apply_plain, "apply_bound_ms": apply_bound,
+        "apply_bound_by": apply_by, "apply_changed_pairs": 2 * int(x.size),
+        "shapes": "score_batch on one step's materialised proposals, "
+                  "(128, 5760, 180) CR and (128, 180, 180) EC with 18 "
+                  "racks; swap_score on the same steps' 128 moves against "
+                  "the greedy table's state; swap_apply one CR move and its "
+                  "reverse in turns (ms per apply); swap turns: score_batch "
+                  "(old) and swap_score (new)",
+    }
+
+
 def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.gf256 import GF
     from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_bitslice,
@@ -911,10 +1348,7 @@ def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.rs import RSCode
     from tpu3fs_torch.ops.stripe import StripeCodec
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
-    from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
     from tpu3fs_torch.ops.xor_fold import xor_fold_crc, xor_fold_crc_plain
-    from tpu3fs_torch.placement import PlacementProblem
-    from tpu3fs_torch.placement import solver
 
     phase("phase 11: times (CUDA events, after warm-up)")
     rs = RSCode(K, M, device=dev)
@@ -922,12 +1356,6 @@ def times(dev, paths: dict, cmps: dict):
     data = rand_u8((B, K, S), 11, dev)
     crc = BatchCrc32c(S, 512, device=dev)
     rows = rand_u8((B * (K + M), S), 12, dev)
-
-    def turns(old, new, timer=cuda_ms):
-        """The earlier kernel and the new one in turns: old, new, new, old."""
-        t = [timer(old, 30), timer(new, 30), timer(new, 30), timer(old, 30)]
-        return {"new_ms": [t[1], t[2]], "old_ms": [t[0], t[3]],
-                "new": (t[1] + t[2]) / 2, "old": (t[0] + t[3]) / 2}
 
     enc = turns(lambda: gf2_matmul_bitslice(rs._parity_cols, data),
                 lambda: gf2_matmul(rs._parity_cols, data))
@@ -962,23 +1390,8 @@ def times(dev, paths: dict, cmps: dict):
                   lambda: xor_fold_crc(next(fold_rows)), graph_ms)
     fold_eager = turns(lambda: xor_fold_crc_plain(next(fold_rows)),
                        lambda: xor_fold_crc(next(fold_rows)))
-    # K5 on one annealing step's proposals: the CR table's (128, 5760, 180)
-    # and the EC table's (128, 180, 180) with its 18 racks
-    cr = PlacementProblem(num_nodes=PLACE_NODES, group_size=CR_WIDTH,
-                          targets_per_node=CR_TARGETS)
-    rng = np.random.default_rng(3)
-    cand = torch.from_numpy(solver._propose(solver._greedy_incidence(cr), rng,
-                                            128)).to(dev)
-    k5t = turns(lambda: score_batch_plain(cand), lambda: score_batch(cand))
-    racks = [f"rack{i * RACKS // PLACE_NODES}" for i in range(PLACE_NODES)]
-    ec = PlacementProblem(num_nodes=PLACE_NODES, group_size=EC_K + EC_M,
-                          targets_per_node=EC_TARGETS, chain_table_type="EC",
-                          domains=racks, max_per_domain=EC_M)
-    ec_cand = torch.from_numpy(solver._propose(solver._greedy_incidence(ec),
-                                               rng, 128)).to(dev)
-    ec_dom = torch.from_numpy(solver._domain_index(ec)).to(dev)
-    k5_ec = turns(lambda: score_batch_plain(ec_cand, ec_dom, EC_M),
-                  lambda: score_batch(ec_cand, ec_dom, EC_M))
+    k5 = k5_times(dev)
+    log(json.dumps({"placement_kernels": k5}))
     rates = mma_rates(dev)
 
     # where one write request's time goes: host->device copy of the numpy
@@ -1007,11 +1420,6 @@ def times(dev, paths: dict, cmps: dict):
         k2_bytes, nrows * (2 * 8 * S * 32 + 2 * nblk * 32 * 32))
     xor_bound = (B * K * S + B * S) / HBM_BYTES_PER_S * 1e3
     fold_bound = (B * S + 4 * B) / HBM_BYTES_PER_S * 1e3
-    P5, b5, v5 = cand.shape
-    k5_bound, k5_by = bound_ms(cand.numel() + 3 * 4 * P5, 2 * P5 * b5 * v5 * v5)
-    Pe, be, ve = ec_cand.shape
-    k5_ec_bound, k5_ec_by = bound_ms(ec_cand.numel() + 4 * ve + 3 * 4 * Pe,
-                                     2 * Pe * be * ve * ve)
     log(json.dumps({
         "encode_GiB_s": gib(B * K * S, enc["new"]),
         "encode_bitslice_GiB_s": gib(B * K * S, enc["old"]),
@@ -1028,21 +1436,17 @@ def times(dev, paths: dict, cmps: dict):
         "write_request_ms": write_ms, "mma_rates": rates,
         "fold_graph_turns_ms": foldt, "fold_eager_turns_ms": fold_eager,
         "fold_bound_ms": fold_bound,
-        "score_cr_turns_ms": k5t, "score_cr_bound_ms": k5_bound,
-        "score_cr_GB_s": cand.numel() / 1e9 / (k5t["new"] / 1e3),
-        "score_ec_turns_ms": k5_ec, "score_ec_bound_ms": k5_ec_bound,
-        "score_ec_bound_by": k5_ec_by,
         "shapes": "RS(12,4), B=12 stripes, S=1 MiB; CRC over 192 shards of "
-                  "1 MiB, block 512; chunk S=349,696; fold 12 x 1 MiB; "
-                  "score (128, 5760, 180) CR and (128, 180, 180) EC with "
-                  "18 racks",
+                  "1 MiB, block 512; chunk S=349,696; fold 12 x 1 MiB",
     }))
 
     def record(name, variant, source, replaces, cmp, ms, earlier_ms, plain,
                bound, by, note=NO_LIBRARY):
         """``earlier_ms``: the integer-unit kernel in the same run (K1, K2),
-        or the plain torch version that K3 and K4 were before they had
-        kernels; None for K5, which the port had in no earlier form."""
+        the plain torch version that K3 and K4 were before they had
+        kernels, the full-Gram kernel on the same step for the swap scorer;
+        None for score_batch and swap_apply, which the port had in no
+        earlier form."""
         by_path = {path: counts[name] for path, counts in paths.items()}
         return {"name": name, "variant": variant, "route": "cuda",
                 "source": source, "replaces": replaces,
@@ -1057,8 +1461,10 @@ def times(dev, paths: dict, cmps: dict):
     k2 = ("tpu3fs_torch/csrc/crc32c.cu", "tpu3fs/ops/crc32c.py:242")
     k3 = ("tpu3fs_torch/csrc/xor_reduce.cu", "tpu3fs/ops/rs.py:42")
     k4 = ("tpu3fs_torch/csrc/xor_fold.cu", "tpu3fs/parallel/chain.py:30")
-    k5 = ("tpu3fs_torch/csrc/placement_score.cu",
-          "tpu3fs/placement/solver.py:205")
+    k5_src = ("tpu3fs_torch/csrc/placement_score.cu",
+              "tpu3fs/placement/solver.py:205")
+    k5s = ("tpu3fs_torch/csrc/swap_score.cu", "tpu3fs/placement/solver.py:205")
+    k5a = ("tpu3fs_torch/csrc/swap_score.cu", "tpu3fs/placement/solver.py:261")
     return [
         record("gf2_matmul", "tensor_core", *k1, cmps["K1"], enc["new"],
                enc["old"], enc_plain, k1_bound, k1_by),
@@ -1073,8 +1479,17 @@ def times(dev, paths: dict, cmps: dict):
         record("xor_fold_crc", "one_pass", *k4, cmps["K4"], foldt["new"],
                foldt["old"], foldt["old"], fold_bound, "bytes",
                NO_FOLD_LIBRARY),
-        record("score_batch", "mma_s8", *k5, cmps["K5"], k5t["new"], None,
-               k5t["old"], k5_bound, k5_by, NO_SCORE_LIBRARY),
+        record("score_batch", "mma_s8", *k5_src, cmps["K5"],
+               k5["score_cr_turns_ms"]["new"], None,
+               k5["score_cr_turns_ms"]["old"], k5["score_cr_bound_ms"],
+               k5["score_cr_bound_by"], NO_SCORE_LIBRARY),
+        record("swap_score", "warp_per_move", *k5s, cmps["K5s"],
+               k5["swap_cr_graph_ms"], k5["swap_cr_turns_ms"]["old"],
+               k5["swap_cr_plain_ms"], k5["swap_cr_bound_ms"],
+               k5["swap_cr_bound_by"], NO_SWAP_LIBRARY),
+        record("swap_apply", "one_block", *k5a, cmps["K5a"],
+               k5["apply_graph_ms"], None, k5["apply_plain_ms"],
+               k5["apply_bound_ms"], k5["apply_bound_by"], NO_APPLY_LIBRARY),
     ]
 
 
@@ -1085,15 +1500,17 @@ def main() -> int:
 
     dev = torch.device("cuda")
     build()
-    cmps = {f"K{i}": Compare() for i in range(1, 6)}
+    cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
+                                         "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
     check_k2(dev, cmps["K2"])
     check_k3(dev, cmps["K3"])
     check_k4_k5(dev, cmps["K4"], cmps["K5"])
+    check_k5_swap(dev, cmps["K5s"], cmps["K5a"])
     paths = {"stripe_server": serve(dev)}
     paths["hops"] = hops(dev, Compare())
     paths["multi_device"] = multi_device(dev)
-    paths["placement"] = placement(dev)
+    paths["placement"] = placement(dev, Compare())
     kernels = times(dev, paths, cmps)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

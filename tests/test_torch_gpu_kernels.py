@@ -1,6 +1,7 @@
-"""Kernels K4 (xor_fold_crc) and K5 (score_batch) against their plain
-PyTorch versions on a CUDA card, and the placement solver on the card
-against the same solve on the CPU. Tolerance 0.
+"""Kernels K4 (xor_fold_crc) and K5 (the full-Gram score_batch, and the
+swap scorer's swap_score and swap_apply) against their plain PyTorch
+versions on a CUDA card, and the placement solver on the card against the
+same solve on the CPU. Tolerance 0.
 
 Every test carries the ``gpu`` marker and skips without a card. The file
 imports neither JAX nor the JAX package, so it runs on a machine with a
@@ -15,8 +16,12 @@ import pytest
 import torch
 
 from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
+from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
+                                         swap_score, swap_score_plain,
+                                         swap_state)
 from tpu3fs_torch.ops.xor_fold import xor_fold_crc, xor_fold_crc_plain
 from tpu3fs_torch.placement import PlacementProblem, solve_placement
+from tpu3fs_torch.placement.solver import _propose_moves
 
 
 @pytest.fixture
@@ -67,3 +72,65 @@ def test_solve_placement_on_the_card_matches_the_cpu(cuda_device):
     got = solve_placement(p, steps=300, seed=4, device=cuda_device)
     want = solve_placement(p, steps=300, seed=4, device="cpu")
     assert got.tobytes() == want.tobytes()
+
+
+def _table(b, v, k, seed):
+    """(b, v) int8: each row k distinct nodes drawn from a seed."""
+    rng = np.random.default_rng(seed)
+    M = np.zeros((b, v), dtype=np.int8)
+    M[np.arange(b)[:, None], rng.random((b, v)).argsort(axis=1)[:, :k]] = 1
+    return M
+
+
+def _racks(v, n_dom):
+    return None if n_dom is None else (np.arange(v) * n_dom // v).astype(np.int32)
+
+
+def _moves_on(M, rng, P, device):
+    moves = _propose_moves(M, rng, P)
+    return moves, torch.from_numpy(np.stack(moves).astype(np.int32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,v,k,n_dom,cap,P", [
+    (5760, 180, 3, None, 0, 128), (5760, 180, 3, 18, 1, 128),
+    (180, 180, 16, 18, 4, 128), (180, 180, 16, 180, 1, 3),
+    (180, 180, 1, None, 0, 128), (20000, 16, 8, None, 0, 8),
+    (8, 10, 4, 5, 1, 64)])
+def test_swap_score_kernel_matches_plain(cuda_device, b, v, k, n_dom, cap, P):
+    M = _table(b, v, k, seed=b + v + k)
+    if b == 8:  # rows in identical pairs: many invalid moves
+        M = np.repeat(M[:4], 2, axis=0)
+    state = swap_state(M, _racks(v, n_dom), cap, cuda_device)
+    _, moves = _moves_on(M, np.random.default_rng(v), P, cuda_device)
+    launches = swap_score.launches
+    got = swap_score(state, moves)
+    assert swap_score.launches == launches + 1
+    assert torch.equal(got, swap_score_plain(state, moves))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dom", [None, 18])
+def test_swap_apply_kernel_matches_plain(cuda_device, n_dom):
+    """200 accepted moves at the EC table's shape, through the kernel and
+    through the plain version: both states equal a fresh build after each."""
+    M = _table(180, 180, 16, seed=3)
+    dom = _racks(180, n_dom)
+    kernel_state = swap_state(M, dom, 4, cuda_device)
+    plain_state = swap_state(M, dom, 4, cuda_device)
+    rng = np.random.default_rng(4)
+    launches = swap_apply.launches
+    for _ in range(200):
+        moves, moves_t = _moves_on(M, rng, 4, cuda_device)
+        p = int(np.argmax(moves.valid))
+        swap_apply(kernel_state, moves_t, p)
+        swap_apply_plain(plain_state, moves_t, p)
+        g1, g2, a, c = (int(x[p]) for x in moves[:4])
+        M[g1, a], M[g1, c], M[g2, c], M[g2, a] = 0, 1, 0, 1
+        fresh = swap_state(M, dom, 4, cuda_device)
+        for name in ("M", "G", "hist", "counts", "score"):
+            want = getattr(fresh, name)
+            if want is not None:
+                assert torch.equal(getattr(kernel_state, name), want), name
+                assert torch.equal(getattr(plain_state, name), want), name
+    assert swap_apply.launches == launches + 200

@@ -1,8 +1,10 @@
-"""The port's chain-table placement (tpu3fs_torch.placement, kernel K5's
-plain version, entry.gen_chain_table) against tpu3fs.placement and the
-JAX CLI, on the CPU. Tolerance 0: every score, matrix, plan and command
-line equal. Kernel K5 itself is held against its plain version by
-tests/test_torch_gpu_kernels.py, on a card."""
+"""The port's chain-table placement (tpu3fs_torch.placement, the plain
+versions of kernel K5's full-Gram and swap scorers, entry.gen_chain_table)
+against tpu3fs.placement and the JAX CLI, on the CPU. Tolerance 0: every
+score, matrix, plan and command line equal. The kernels themselves are
+held against their plain versions by tests/test_torch_gpu_kernels.py, on
+a card; the swap scorer against the JAX scorer by
+tests/test_torch_swap_score.py."""
 
 import dataclasses
 
@@ -21,6 +23,7 @@ from tpu3fs_torch import entry
 from tpu3fs_torch.mgmtd import types as port_types
 from tpu3fs_torch.ops.placement_score import (score_batch,
                                               score_batch_plain)
+from tpu3fs_torch.ops.swap_score import swap_score_plain
 
 
 def _incidences(P, b, v, seed):
@@ -149,12 +152,13 @@ def test_solve_placement_matches_jax(name):
 def test_solve_placement_runs_the_annealer_through_the_scorer():
     """30 nodes, width 3, 6 targets each: round robin gives λ = 6 against
     a lower bound of 1, far from reach in 5 steps, so every step calls the
-    scorer once."""
+    swap scorer once, and never the full-Gram scorer."""
     p = port_placement.PlacementProblem(num_nodes=30, group_size=3,
                                         targets_per_node=6)
-    calls = score_batch_plain.calls
+    calls, full = swap_score_plain.calls, score_batch_plain.calls
     port_placement.solve_placement(p, device="cpu", steps=5, seed=1)
-    assert score_batch_plain.calls == calls + 5
+    assert swap_score_plain.calls == calls + 5
+    assert score_batch_plain.calls == full
 
 
 @pytest.mark.parametrize("kw", [

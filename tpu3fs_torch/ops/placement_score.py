@@ -12,7 +12,9 @@ closure there). For each of P candidate incidence matrices, int8
 with XLA's int32 arithmetic. ``score_batch`` launches
 ``csrc/placement_score.cu`` for a CUDA tensor (the Gram taken in int8
 tensor-core products, reduced in registers, never written out) and runs
-``score_batch_plain`` only for a tensor on the CPU.
+``score_batch_plain`` only for a tensor on the CPU. The annealer scores
+its proposals from their swaps (``ops/swap_score.py``); this full-Gram
+scorer of the materialised proposals is that scorer's check.
 """
 
 from __future__ import annotations

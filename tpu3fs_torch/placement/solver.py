@@ -1,12 +1,15 @@
 """Chain-table placement: the BIBD integer program, solved on the card.
 
 The port's own copy of ``tpu3fs/placement/solver.py``. Only the scorer
-changed: each annealing step sends its P proposals to the device and
-scores them with ``ops.placement_score.score_batch`` (kernel K5 on the
-card, its plain version on the CPU) where the JAX package called a jitted
-einsum. Everything else is host numpy drawing from the same generator in
-the same order, so a seed gives the same incidence matrix, byte for byte,
-as the JAX package.
+changed. The JAX package materialises each step's P proposals and takes
+the full Gram of each in a jitted einsum; here the table, its Gram, the
+histogram of the Gram's values and the domain counts stay on the device
+(``ops.swap_score.SwapState``), each step sends only its P moves, and
+``ops.swap_score.swap_score`` scores every proposal from its swap (kernel
+K5 on the card, its plain version on the CPU); an accepted move is applied
+there by ``swap_apply``. The draws are host numpy from the same generator
+in the same order, so a seed gives the same incidence matrix, byte for
+byte, as the JAX package.
 
 Re-expresses deploy/data_placement/src/model/data_placement.py (a Pyomo MILP
 solved with HiGHS): choose an incidence of v nodes into b chain groups of
@@ -20,7 +23,7 @@ tables, data_placement.py:30,~92).
 Instead of a branch-and-bound MILP, the search is a batched annealer: at each
 step a batch of candidate swap moves is scored in parallel on the device
 and the best accepted — the classic simulated-annealing reformulation of
-BIBD construction (scores are b x v Gram products). Falls back to greedy
+BIBD construction (scores are changes of the v x v Gram). Falls back to greedy
 round-robin whenever the annealer cannot beat it.
 
 check_solution mirrors the reference's validation; gen_chain_table_commands
@@ -31,13 +34,14 @@ gen_chain_table.py.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpu3fs_torch.device import resolve_device
-from tpu3fs_torch.ops.placement_score import score_batch
+from tpu3fs_torch.ops.swap_score import (gram_np, swap_apply, swap_score,
+                                         swap_state)
 
 
 @dataclasses.dataclass
@@ -170,16 +174,26 @@ def domain_overflow(M: np.ndarray, problem: PlacementProblem) -> int:
     return int(np.maximum(counts - int(problem.max_per_domain), 0).sum())
 
 
-def _propose(M: np.ndarray, rng: np.random.Generator, P: int) -> np.ndarray:
-    """P swap moves of the table, (P, b, v) int8, FULLY VECTORIZED: for
-    each proposal pick two distinct groups (g1, g2) and exchange one member
-    a ∈ g1∖g2 with one c ∈ g2∖g1 — preserving both row sums (k) and column
-    sums (r). Member selection is a weighted argmax over the difference
-    masks; proposals whose groups have no exchangeable members (identical
-    membership) fall back to the current table and simply score as
-    no-ops. Draws integers, integers, then random((P, v)) twice."""
+class Moves(NamedTuple):
+    """One step's P swap moves, each (P,): row g1 gives node a to row g2
+    and takes node c from it; ``valid`` is False where g1 and g2 have no
+    exchangeable members."""
+    g1: np.ndarray
+    g2: np.ndarray
+    a: np.ndarray
+    c: np.ndarray
+    valid: np.ndarray
+
+
+def _propose_moves(M: np.ndarray, rng: np.random.Generator, P: int) -> Moves:
+    """P swap moves of the table, FULLY VECTORIZED: for each proposal pick
+    two distinct groups (g1, g2) and exchange one member a ∈ g1∖g2 with one
+    c ∈ g2∖g1 — preserving both row sums (k) and column sums (r). Member
+    selection is a weighted argmax over the difference masks; proposals
+    whose groups have no exchangeable members (identical membership) are
+    not valid and score as the current table. Draws integers, integers,
+    then random((P, v)) twice: the JAX package's order."""
     b, v = M.shape
-    cand = np.repeat(M[None, :, :], P, axis=0)
     g1 = rng.integers(0, b, P)
     g2 = (g1 + rng.integers(1, b, P)) % b   # distinct by construction
     rows1 = M[g1].astype(bool)              # (P, v)
@@ -191,31 +205,37 @@ def _propose(M: np.ndarray, rng: np.random.Generator, P: int) -> np.ndarray:
     # restricted to the mask (masked-out entries score -1)
     noise_a = np.where(only1, rng.random((P, v)), -1.0)
     noise_c = np.where(only2, rng.random((P, v)), -1.0)
-    a = noise_a.argmax(axis=1)
-    c = noise_c.argmax(axis=1)
-    pi = np.nonzero(valid)[0]
-    cand[pi, g1[pi], a[pi]] = 0
-    cand[pi, g1[pi], c[pi]] = 1
-    cand[pi, g2[pi], c[pi]] = 0
-    cand[pi, g2[pi], a[pi]] = 1
+    return Moves(g1, g2, noise_a.argmax(axis=1), noise_c.argmax(axis=1),
+                 valid)
+
+
+def _materialise(M: np.ndarray, moves: Moves) -> np.ndarray:
+    """The proposals' tables, (P, b, v) int8: copies of M with each valid
+    move applied; an invalid one stays a copy of M."""
+    cand = np.repeat(M[None, :, :], len(moves.valid), axis=0)
+    pi = np.nonzero(moves.valid)[0]
+    g1, g2, a, c = (x[pi] for x in moves[:4])
+    cand[pi, g1, a] = 0
+    cand[pi, g1, c] = 1
+    cand[pi, g2, c] = 0
+    cand[pi, g2, a] = 1
     return cand
 
 
-def _score_on(dev: torch.device, cand: np.ndarray,
-              dom: Optional[torch.Tensor], cap: int):
-    """One annealing step's scores: the proposals copied to ``dev``,
-    scored there, and the (overflow, max, ssq) int32 arrays copied back."""
-    scores = score_batch(torch.from_numpy(cand).to(dev), dom, cap)
-    return torch.stack(scores).cpu().numpy()
+def _propose(M: np.ndarray, rng: np.random.Generator, P: int) -> np.ndarray:
+    """P materialised swap proposals, (P, b, v) int8: the JAX package's
+    proposals, from the same draws."""
+    return _materialise(M, _propose_moves(M, rng, P))
+
+
+def _off_diagonal_score(C: np.ndarray) -> Tuple[int, int]:
+    """(max, sum of squares) of a Gram matrix off its diagonal, exact."""
+    off = C - np.diag(np.diag(C))
+    return int(off.max()), int((off * off).sum())
 
 
 def _score_np(M: np.ndarray) -> Tuple[int, int]:
-    # float64 BLAS then round — numpy integer matmul has no BLAS path
-    # and is ~100x slower on 10k-group tables; counts are << 2^53
-    Mf = M.astype(np.float64)
-    C = (Mf.T @ Mf).astype(np.int64)
-    off = C - np.diag(np.diag(C))
-    return int(off.max()), int((off * off).sum())
+    return _off_diagonal_score(gram_np(M))
 
 
 def solve_placement(
@@ -251,7 +271,8 @@ def solve_placement(
         target_lambda = (min(target_lambda, traffic_tgt)
                          if target_lambda is not None else traffic_tgt)
     tgt = target_lambda if target_lambda is not None else problem.lambda_lower_bound
-    best_max, best_ssq = _score_np(M)
+    gram = gram_np(M)
+    best_max, best_ssq = _off_diagonal_score(gram)
     best_over = domain_overflow(M, problem)
     if (best_over == 0 and best_max <= tgt) or b < 2:
         return M  # already optimal, or a single group has no swap moves
@@ -259,15 +280,29 @@ def solve_placement(
     P = proposals_per_step
     labels = _domain_index(problem)
     cap = int(problem.max_per_domain) if labels is not None else 0
-    dom = (torch.from_numpy(labels).to(dev) if labels is not None else None)
+    # the table, its Gram, the Gram's histogram and the domain counts live
+    # on the device from here on; each step sends only its moves
+    state = swap_state(M, labels, cap, dev, gram=gram)
+    # a step's traffic, the moves in and the scores back, staged in pinned
+    # host memory on the card: faster than pageable copies on the H100
+    # (PERF.md section 5)
+    pin = dev.type == "cuda"
+    moves_host = torch.empty((len(Moves._fields), P), dtype=torch.int32,
+                             pin_memory=pin)
+    scores_host = torch.empty((3, P), dtype=torch.int32, pin_memory=pin)
 
     rng = np.random.default_rng(seed)
     temperature = 1.0
     for _step in range(steps):
-        cand = _propose(M, rng, P)
+        moves = _propose_moves(M, rng, P)
+        moves_host.numpy()[:] = np.stack(moves)
+        moves_dev = moves_host.to(dev, non_blocking=True)
         # overflow leads the lexicographic objective: the domain cap is a
         # constraint, λ a preference
-        overs, maxs, ssqs = _score_on(dev, cand, dom, cap)
+        scores_host.copy_(swap_score(state, moves_dev), non_blocking=True)
+        if pin:  # the scores have landed; moves_host may be refilled
+            torch.cuda.current_stream(dev).synchronize()
+        overs, maxs, ssqs = scores_host.numpy()
         order = np.lexsort((ssqs, maxs, overs))
         bi = order[0]
         # exploration never regresses the hard domain constraint
@@ -277,7 +312,10 @@ def solve_placement(
                 and rng.random() < 0.02 * temperature)
         )
         if accept:
-            M = cand[bi]
+            swap_apply(state, moves_dev, int(bi))
+            if moves.valid[bi]:  # an invalid proposal is M itself
+                g1, g2, a, c = (int(x[bi]) for x in moves[:4])
+                M[g1, a], M[g1, c], M[g2, c], M[g2, a] = 0, 1, 0, 1
             best_over, best_max, best_ssq = (
                 int(overs[bi]), int(maxs[bi]), int(ssqs[bi]))
         temperature *= 0.99
