@@ -20,8 +20,11 @@ Phases, in order (any failure exits non-zero):
   5. K3: the XOR-rebuild kernel xor_reduce against xor_reduce_plain at the
      rebuild shape, k of 2, 7 and 12, a ragged S and an unaligned base;
   6. K4 and K5: the chain ring's fold checksum xor_fold_crc (a byte probe
-     at every offset and base alignment, S % 4 of 0-3, S = 0, an unaligned
-     base, 12 x 1 MiB), the full-Gram placement scorer score_batch (pair
+     at every offset and base alignment, S % 4 of 0-3, S = 0, B = 0, and
+     every shape of FOLD_SHAPES at base offsets 0-15) against its plain
+     version and the earlier atomic kernel (xor_fold_crc_atomic), then one call per
+     shape captured in a CUDA graph and replayed on three fresh inputs;
+     the full-Gram placement scorer score_batch (pair
      probes across the Gram's tiles, v of 1, 7, 13 and 180 x b of 2, 37 and
      5760 x P of 1, 3 and 128, with and without domains, signed values, an
      unaligned base, zero-size work), each against its plain version; then
@@ -57,12 +60,17 @@ Phases, in order (any failure exits non-zero):
      the full-Gram route's (proposals, copy in, score_batch, copy back);
  11. times with CUDA events at the main path's shapes, the earlier kernel
      (or the plain version) and the new one in turns, beside each kernel's
-     bound and its plain version's time; the times of the hop ops and the
-     one-rank chain step.
+     bound and its plain version's time (K4 at every shape of FOLD_SHAPES,
+     from CUDA graphs and eagerly, and a torch.profiler trace of a graph
+     of K4 calls: the new kernel must be one kernel a call, no memset); the
+     times of the hop ops and the one-rank chain step.
 Phases 7, 8, 9 and 10 are the main path: every kernel count is set to 0
 just before each and read just after; every K1 and K2 launch there must be
-a tensor-core one and every K3, K4 and K5 call a kernel launch (K5 on the
-main path is the swap scorer; the full-Gram score_batch is its check).
+a tensor-core one and every K3, K4 and K5 call a kernel launch (K4 on the
+main path is the one-launch kernel, never the atomic one; K5 the swap scorer; the
+full-Gram score_batch is its check).
+``python3 chip_smoke.py --fold-variants`` instead builds the kernels and
+times K4's launch plan varied (fold_variants).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -76,6 +84,7 @@ import subprocess
 import sys
 import time
 from datetime import timedelta
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -86,6 +95,14 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 K, M, S_WRITE, B_WRITE = 12, 4, MIB, 12   # bench.py's RS(12,4) write batch
 CHUNK_BYTES, S_CHUNK = 4 * MIB, 349_696    # shard_size_of(4 MiB, 12)
+# K4's shapes: (B, S, base offset, why)
+FOLD_SHAPES = [(B_WRITE, S_WRITE, 0, "the chain write batch"),
+               (2, 128, 0, "the dry run's launches"),
+               (K, S_CHUNK, 0, "one 4 MiB chunk's shards"),
+               (1, 64 * MIB, 0, "one long row"),
+               (64, 64 * 1024, 0, "an ICI bucket of medium writes"),
+               (1024, 4096, 0, "an ICI bucket of small writes"),
+               (B_WRITE, S_WRITE + 3, 1, "ragged S, unaligned base")]
 STORE_STRIPES = 64                         # 64 x 16 x 1 MiB = 1 GiB store
 NO_LIBRARY = ("no single PyTorch call computes a GF(2^8) matrix apply "
               "or a CRC32C")
@@ -107,6 +124,7 @@ NO_APPLY_LIBRARY = ("no single PyTorch call applies a swap to the table, its "
 PLACE_NODES, CR_WIDTH, CR_TARGETS, PLACE_STEPS = 180, 3, 96, 200
 CHECKED_STEPS = 20  # steps whose swap scores are held against score_batch
 EC_K, EC_M, EC_TARGETS, RACKS = 12, 4, 16, 18
+OUT_DIR = Path("chiprun_out")  # traces and sweeps, git-ignored
 
 
 def log(*parts) -> None:
@@ -207,7 +225,8 @@ def counters() -> dict:
     from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
     from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
                                              swap_score, swap_score_plain)
-    from tpu3fs_torch.ops.xor_fold import xor_fold_crc, xor_fold_crc_plain
+    from tpu3fs_torch.ops.xor_fold import (xor_fold_crc, xor_fold_crc_atomic,
+                                           xor_fold_crc_plain)
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
 
     return {"gf2_matmul": (gf2_matmul, "launches"),
@@ -218,6 +237,7 @@ def counters() -> dict:
             "xor_reduce_plain": (xor_reduce_plain, "calls"),
             "xor_fold_crc": (xor_fold_crc, "launches"),
             "xor_fold_crc_plain": (xor_fold_crc_plain, "calls"),
+            "xor_fold_crc_atomic": (xor_fold_crc_atomic, "launches"),
             "score_batch": (score_batch, "launches"),
             "score_batch_plain": (score_batch_plain, "calls"),
             "swap_score": (swap_score, "launches"),
@@ -237,18 +257,18 @@ def zero_counts() -> None:
 
 def require_main_path(path: str, counts: dict, launched) -> None:
     """Every kernel in ``launched`` ran in this path; no K1 or K2 launch
-    took the earlier integer-unit kernels and no K3, K4 or K5 call its
-    plain version."""
+    took the earlier integer-unit kernels, no K4 launch the atomic kernel and
+    no K3, K4 or K5 call its plain version."""
     for name in launched:
         require(counts[name] > 0, f"{name} was not launched on {path}")
     for name in ("gf2_matmul_bitslice", "crc32c_blocks_table",
                  "xor_reduce_plain", "xor_fold_crc_plain",
-                 "score_batch_plain", "swap_score_plain",
-                 "swap_apply_plain"):
+                 "xor_fold_crc_atomic", "score_batch_plain",
+                 "swap_score_plain", "swap_apply_plain"):
         require(counts[name] == 0,
                 f"{name} ran on {path}: every K1 and K2 launch there must "
                 "be a tensor-core launch and every K3, K4 and K5 call a "
-                "kernel launch")
+                "launch of its new kernel")
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -454,12 +474,23 @@ def check_k3(dev, cmp: Compare) -> None:
 
 
 # -- phase 6 -----------------------------------------------------------------
-def check_k4_k5(dev, cmp4: Compare, cmp5: Compare) -> None:
-    from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
-    from tpu3fs_torch.ops.xor_fold import xor_fold_crc, xor_fold_crc_plain
+def fold_input(shape, offset: int, seed: int, dev) -> torch.Tensor:
+    """A (B, S) uint8 view ``offset`` bytes into a fresh allocation (the
+    allocator's 512-byte alignment plus ``offset``)."""
+    batch, size = shape
+    flat = rand_u8((batch * size + offset,), seed, dev)
+    return flat[offset:].view(batch, size)
 
-    t0 = phase("phase 6: K4 xor_fold_crc and K5 score_batch against their "
-               "plain versions")
+
+def check_k4(dev, cmp4: Compare) -> None:
+    """K4 against its plain version and the atomic kernel: byte probes, the
+    timing table's shapes at base offsets 0-15, eagerly and from graph
+    replays on fresh inputs."""
+    from tpu3fs_torch.ops.xor_fold import (xor_fold_crc, xor_fold_crc_atomic,
+                                           xor_fold_crc_plain)
+
+    t0 = phase("phase 6: K4 xor_fold_crc against its plain version and "
+               "the atomic kernel (xor_fold_crc_atomic)")
 
     def fold(x, label, launched=True):
         n = xor_fold_crc.launches
@@ -482,16 +513,44 @@ def check_k4_k5(dev, cmp4: Compare, cmp5: Compare) -> None:
                  f"probe S={size} base+{base} lands")
     for size in (4096, 4097, 4098, 4099, 7, 1000):
         fold(rand_u8((5, size), 60 + size % 97, dev), f"B=5 S={size}")
-    fold(rand_u8((B_WRITE, S_WRITE), 61, dev), "12 x 1 MiB")
-    fold(rand_u8((1, S_WRITE), 62, dev), "1 x 1 MiB")
-    flat = rand_u8((B_WRITE * S_WRITE + 3,), 63, dev)
-    fold(flat[3:].view(B_WRITE, S_WRITE), "12 x 1 MiB, unaligned base")
-    flat = rand_u8((7 * 4099 + 1,), 64, dev)
-    fold(flat[1:].view(7, 4099), "S=4099, unaligned base")
     fold(rand_u8((3, 0), 65, dev), "S=0", launched=False)
     fold(rand_u8((0, 64), 66, dev), "B=0", launched=False)
+    # the timing table's shapes at every base offset: equal to the plain
+    # version and to the atomic kernel
+    for (batch, size, _, why), seed in zip(FOLD_SHAPES, itertools.count(70)):
+        for offset in range(16):
+            x = fold_input((batch, size), offset, seed + 100 * offset, dev)
+            label = f"{batch} x {size} +{offset} ({why})"
+            got = fold(x, label)
+            cmp4(got, xor_fold_crc_atomic(x), f"{label}: atomic kernel")
     torch.cuda.synchronize()
-    log(f"K4: {cmp4.cases} comparisons equal")
+    # one call captured in a CUDA graph, replayed three times on fresh
+    # inputs copied into the captured buffer
+    for (batch, size, offset, why), seed in zip(FOLD_SHAPES, itertools.count(200)):
+        for base in sorted({0, offset, 3}):
+            static = fold_input((batch, size), base, seed, dev)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                xor_fold_crc(static)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = xor_fold_crc(static)
+            for rep in range(3):
+                static.copy_(rand_u8((batch, size), seed + 1000 + rep, dev))
+                graph.replay()
+                cmp4(out, xor_fold_crc_plain(static),
+                     f"{batch} x {size} +{base} graph replay {rep}")
+    torch.cuda.synchronize()
+    log(f"K4: {cmp4.cases} comparisons equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def check_k5(dev, cmp5: Compare) -> None:
+    from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
+
+    t0 = phase("phase 6: K5 score_batch against its plain version")
 
     def score(Ms, label, dom=None, cap=2, launched=True):
         n = score_batch.launches
@@ -1220,11 +1279,130 @@ def mma_rates(dev) -> dict:
     return rates
 
 
+def fold_trace(fold, batches, calls: int = 30, path=None) -> dict:
+    """A torch.profiler trace of one CUDA graph of ``calls`` fold calls,
+    each on the next of ``batches``: the device operations of one call by
+    name (kernels, memsets), their mean durations, the mean gap between
+    one device operation's end and the next one's start, and the graph's
+    span per call. ``path``: where the Chrome trace is written."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cycle = itertools.cycle(batches)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fold(next(cycle))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fold(next(cycle))
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    out = Path(path or OUT_DIR / "fold_trace.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    events = sorted((e for e in json.loads(out.read_text())["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") in
+                     ("kernel", "gpu_memset", "gpu_memcpy")),
+                    key=lambda e: e["ts"])
+    if not events:
+        return {"device_ops": 0, "note": "the profiler saw no device time"}
+    by_name = {}
+    for e in events:
+        name = e["name"] if e["cat"] == "kernel" else e["cat"]
+        d = by_name.setdefault(name, {"count": 0, "us": 0.0})
+        d["count"] += 1
+        d["us"] += e["dur"]
+    for d in by_name.values():
+        d["mean_us"] = d.pop("us") / d["count"]
+        d["per_call"] = d.pop("count") / calls
+    gaps = [b["ts"] - (a["ts"] + a["dur"]) for a, b in zip(events, events[1:])]
+    return {"device_ops_per_call": len(events) / calls, "by_name": by_name,
+            "gap_mean_us": sum(gaps) / len(gaps) if gaps else 0.0,
+            "gap_max_us": max(gaps) if gaps else 0.0,
+            "span_us_per_call": (events[-1]["ts"] + events[-1]["dur"]
+                                 - events[0]["ts"]) / calls,
+            "calls": calls, "trace": str(out)}
+
+
+def fold_split(dev, folds: dict) -> dict:
+    """Each fold in ``folds`` (name -> function) at the chain write's
+    12 x 1 MiB (6 batches, 75 MB, over the L2) and the dry run's 2 x 128:
+    a traced CUDA graph of 30 calls (``fold_trace``), its time by events,
+    and the eager wrapper's time by events."""
+    out = {}
+    for shape, n in (((B_WRITE, S_WRITE), 6), ((2, 128), 1)):
+        batches = [rand_u8(shape, 90 + i, dev) for i in range(n)]
+        for name, fold in folds.items():
+            cycle = itertools.cycle(batches)
+            key = f"{name} {shape[0]}x{shape[1]}"
+            out[key] = {
+                "trace": fold_trace(fold, batches, path=(
+                    OUT_DIR / f"fold_trace_{name}_{shape[0]}x{shape[1]}"
+                    ".json")),
+                "graph_ms": graph_ms(lambda: fold(next(cycle)), 30),
+                "eager_ms": cuda_ms(lambda: fold(next(cycle)), 30)}
+    return out
+
+
 def turns(old, new, timer=cuda_ms):
     """The earlier kernel and the new one in turns: old, new, new, old."""
     t = [timer(old, 30), timer(new, 30), timer(new, 30), timer(old, 30)]
     return {"new_ms": [t[1], t[2]], "old_ms": [t[0], t[3]],
             "new": (t[1] + t[2]) / 2, "old": (t[0] + t[3]) / 2}
+
+
+def k4_times(dev) -> dict:
+    """K4 at every shape of FOLD_SHAPES: the atomic kernel (old) and the new one
+    in turns, replayed from CUDA graphs and eagerly, each call on the next
+    of enough batches to touch over 50 MB, so each reads from HBM (one
+    batch at the dry run's shape: launch cost only); the plain version from
+    a graph; the bytes bound; the plan's route. Then both kernels' device
+    operations in a traced graph (``fold_split``): the new kernel must be
+    one kernel a call and no memset."""
+    from tpu3fs_torch.ops.xor_fold import (fold_plan, xor_fold_crc,
+                                           xor_fold_crc_atomic,
+                                           xor_fold_crc_plain)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {}
+    for batch, size, offset, why in FOLD_SHAPES:
+        nbytes = batch * size
+        n = 1 if nbytes < MIB else max(2, -(-75_000_000 // nbytes))
+        batches = [fold_input((batch, size), offset, 300 + i, dev)
+                   for i in range(n)]
+        cyc = itertools.cycle(batches)
+
+        def old():
+            return xor_fold_crc_atomic(next(cyc))
+
+        def new():
+            return xor_fold_crc(next(cyc))
+        shapes[f"{batch}x{size}+{offset}"] = {
+            "why": why, "batches": n,
+            "route": fold_plan(batch, size, sms)._asdict(),
+            "graph_turns_ms": turns(old, new, graph_ms),
+            "eager_turns_ms": turns(old, new),
+            "plain_graph_ms": graph_ms(lambda: xor_fold_crc_plain(next(cyc)),
+                                       10),
+            "bound_ms": (nbytes + 4 * batch) / HBM_BYTES_PER_S * 1e3}
+        del batches, cyc
+        torch.cuda.empty_cache()
+    split = fold_split(dev, {"atomic": xor_fold_crc_atomic,
+                             "new": xor_fold_crc})
+    for key, got in split.items():
+        if key.startswith("new"):
+            trace = got["trace"]
+            require(trace.get("device_ops_per_call") == 1.0
+                    and "gpu_memset" not in trace["by_name"],
+                    f"K4 {key}: a traced graph call is not one kernel: "
+                    f"{trace}")
+    return {"shapes": shapes, "split": split}
 
 
 def k5_times(dev) -> dict:
@@ -1348,7 +1526,6 @@ def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.rs import RSCode
     from tpu3fs_torch.ops.stripe import StripeCodec
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
-    from tpu3fs_torch.ops.xor_fold import xor_fold_crc, xor_fold_crc_plain
 
     phase("phase 11: times (CUDA events, after warm-up)")
     rs = RSCode(K, M, device=dev)
@@ -1380,16 +1557,13 @@ def times(dev, paths: dict, cmps: dict):
                  lambda: gf2_matmul(hop_cols, hop_data))
     cdata = rand_u8((1, K, S_CHUNK), 13, dev)
     chunk_ms = cuda_ms(lambda: gf2_matmul(rs._parity_cols, cdata), 50)
-    # K4 at the chain write's 12 x 1 MiB, cycling through 6 batches (75 MB,
-    # over the 50 MB L2) so that each call reads its rows from HBM; replayed
-    # from CUDA graphs, since the host enqueues a call more slowly than the
-    # card runs it, and eagerly as the chain write calls it
-    fold_rows = itertools.cycle([rand_u8((B, S), 20 + i, dev)
-                                 for i in range(6)])
-    foldt = turns(lambda: xor_fold_crc_plain(next(fold_rows)),
-                  lambda: xor_fold_crc(next(fold_rows)), graph_ms)
-    fold_eager = turns(lambda: xor_fold_crc_plain(next(fold_rows)),
-                       lambda: xor_fold_crc(next(fold_rows)))
+    # K4 at every shape of FOLD_SHAPES, the atomic kernel and the new one in
+    # turns, from CUDA graphs (the host enqueues a call more slowly than the
+    # card runs it) and eagerly; the traced split of both
+    k4 = k4_times(dev)
+    log(json.dumps({"fold_kernels": k4}))
+    fold = k4["shapes"][f"{B}x{S}+0"]
+    foldt = fold["graph_turns_ms"]
     k5 = k5_times(dev)
     log(json.dumps({"placement_kernels": k5}))
     rates = mma_rates(dev)
@@ -1419,7 +1593,6 @@ def times(dev, paths: dict, cmps: dict):
     k2_bound, k2_by = bound_ms(
         k2_bytes, nrows * (2 * 8 * S * 32 + 2 * nblk * 32 * 32))
     xor_bound = (B * K * S + B * S) / HBM_BYTES_PER_S * 1e3
-    fold_bound = (B * S + 4 * B) / HBM_BYTES_PER_S * 1e3
     log(json.dumps({
         "encode_GiB_s": gib(B * K * S, enc["new"]),
         "encode_bitslice_GiB_s": gib(B * K * S, enc["old"]),
@@ -1434,8 +1607,6 @@ def times(dev, paths: dict, cmps: dict):
         "encode_4MiB_chunk_ms": chunk_ms,
         "delta_k1_turns_ms": hopt,
         "write_request_ms": write_ms, "mma_rates": rates,
-        "fold_graph_turns_ms": foldt, "fold_eager_turns_ms": fold_eager,
-        "fold_bound_ms": fold_bound,
         "shapes": "RS(12,4), B=12 stripes, S=1 MiB; CRC over 192 shards of "
                   "1 MiB, block 512; chunk S=349,696; fold 12 x 1 MiB",
     }))
@@ -1443,10 +1614,10 @@ def times(dev, paths: dict, cmps: dict):
     def record(name, variant, source, replaces, cmp, ms, earlier_ms, plain,
                bound, by, note=NO_LIBRARY):
         """``earlier_ms``: the integer-unit kernel in the same run (K1, K2),
-        the plain torch version that K3 and K4 were before they had
-        kernels, the full-Gram kernel on the same step for the swap scorer;
-        None for score_batch and swap_apply, which the port had in no
-        earlier form."""
+        the plain torch version that K3 was before it had a kernel, the
+        atomic kernel for K4, the full-Gram kernel on the same step for the swap
+        scorer; None for score_batch, swap_apply and the atomic K4, which the
+        port had in no earlier form."""
         by_path = {path: counts[name] for path, counts in paths.items()}
         return {"name": name, "variant": variant, "route": "cuda",
                 "source": source, "replaces": replaces,
@@ -1460,7 +1631,7 @@ def times(dev, paths: dict, cmps: dict):
     k1 = ("tpu3fs_torch/csrc/gf2_matmul.cu", "tpu3fs/ops/pallas_rs.py:68")
     k2 = ("tpu3fs_torch/csrc/crc32c.cu", "tpu3fs/ops/crc32c.py:242")
     k3 = ("tpu3fs_torch/csrc/xor_reduce.cu", "tpu3fs/ops/rs.py:42")
-    k4 = ("tpu3fs_torch/csrc/xor_fold.cu", "tpu3fs/parallel/chain.py:30")
+    k4_src = ("tpu3fs_torch/csrc/xor_fold.cu", "tpu3fs/parallel/chain.py:30")
     k5_src = ("tpu3fs_torch/csrc/placement_score.cu",
               "tpu3fs/placement/solver.py:205")
     k5s = ("tpu3fs_torch/csrc/swap_score.cu", "tpu3fs/placement/solver.py:205")
@@ -1476,9 +1647,12 @@ def times(dev, paths: dict, cmps: dict):
                crct["old"], crc_plain, k2_bound, k2_by),
         record("xor_reduce", "one_pass", *k3, cmps["K3"], xort["new"],
                xort["old"], xort["old"], xor_bound, "bytes", NO_XOR_LIBRARY),
-        record("xor_fold_crc", "one_pass", *k4, cmps["K4"], foldt["new"],
-               foldt["old"], foldt["old"], fold_bound, "bytes",
-               NO_FOLD_LIBRARY),
+        record("xor_fold_crc", "one_launch", *k4_src, cmps["K4"],
+               foldt["new"], foldt["old"], fold["plain_graph_ms"],
+               fold["bound_ms"], "bytes", NO_FOLD_LIBRARY),
+        record("xor_fold_crc_atomic", "memset_atomic", *k4_src,
+               cmps["K4"], foldt["old"], None, fold["plain_graph_ms"],
+               fold["bound_ms"], "bytes", NO_FOLD_LIBRARY),
         record("score_batch", "mma_s8", *k5_src, cmps["K5"],
                k5["score_cr_turns_ms"]["new"], None,
                k5["score_cr_turns_ms"]["old"], k5["score_cr_bound_ms"],
@@ -1493,6 +1667,72 @@ def times(dev, paths: dict, cmps: dict):
     ]
 
 
+def fold_variants(dev) -> dict:
+    """``python3 chip_smoke.py --fold-variants``: K4's launch plan varied
+    (cluster sizes, blocks per SM, the cooperative grid route forced where
+    it applies), each plan's kernel held against the plain version and
+    timed from CUDA graphs in turns with the atomic kernel at every shape of
+    FOLD_SHAPES. The numbers the plan's constants were chosen by."""
+    from unittest import mock
+
+    from tpu3fs_torch.ops import xor_fold as xf
+
+    base_plan = xf.fold_plan.__wrapped__  # uncached: constants are patched
+
+    def with_consts(**consts):
+        def plan(batch, size, sms):
+            with mock.patch.multiple(xf, **consts):
+                return base_plan(batch, size, sms)
+        return plan
+
+    def forced_grid(per_sm):
+        def plan(batch, size, sms):
+            if batch * size and batch <= 64:
+                return xf.FoldPlan("grid", per_sm * sms)
+            return base_plan(batch, size, sms)
+        return plan
+
+    def cluster_of(c):
+        def plan(batch, size, sms):
+            if size > 4096:
+                return xf.FoldPlan("cluster", c * batch, c)
+            return base_plan(batch, size, sms)
+        return plan
+
+    variants = {"plan": base_plan,
+                "1 block/SM": with_consts(CTAS_PER_SM=1),
+                "cluster 16": cluster_of(16),
+                "cluster 8": cluster_of(8),
+                "grid 2/SM": forced_grid(2)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cmp = Compare()
+    out = {}
+    # the table's shapes, then 1 MiB rows at 4-16 rows: where a cluster of
+    # 16 blocks a row stops fitting one block an SM
+    for batch, size, offset, _ in FOLD_SHAPES + [
+            (b, MIB, 0, "") for b in (4, 6, 8, 9, 16)]:
+        nbytes = batch * size
+        n = 1 if nbytes < MIB else max(2, -(-75_000_000 // nbytes))
+        batches = [fold_input((batch, size), offset, 400 + i, dev)
+                   for i in range(n)]
+        cyc = itertools.cycle(batches)
+        want = xf.xor_fold_crc_plain(batches[0])
+        row = {"bound_ms": (nbytes + 4 * batch) / HBM_BYTES_PER_S * 1e3}
+        for name, plan in variants.items():
+            with mock.patch.object(xf, "fold_plan", plan):
+                cmp(xf.xor_fold_crc(batches[0]), want,
+                    f"{batch} x {size} +{offset}, {name}")
+                row[name] = {
+                    "plan": plan(batch, size, sms)._asdict(),
+                    "graph_turns_ms": turns(
+                        lambda: xf.xor_fold_crc_atomic(next(cyc)),
+                        lambda: xf.xor_fold_crc(next(cyc)), graph_ms)}
+        out[f"{batch}x{size}+{offset}"] = row
+        del batches, cyc
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
@@ -1500,12 +1740,25 @@ def main() -> int:
 
     dev = torch.device("cuda")
     build()
+    if sys.argv[1:] == ["--fold-variants"]:
+        found = fold_variants(dev)
+        out = OUT_DIR / "fold_variants.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(found, indent=1))
+        for shape, row in found.items():
+            log(f"{shape}: bound {row.pop('bound_ms')} ms")
+            for name, got in row.items():
+                log(f"  {name:<22} {got['plan']} new "
+                    f"{got['graph_turns_ms']['new']} old "
+                    f"{got['graph_turns_ms']['old']} ms (graph)")
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
     check_k2(dev, cmps["K2"])
     check_k3(dev, cmps["K3"])
-    check_k4_k5(dev, cmps["K4"], cmps["K5"])
+    check_k4(dev, cmps["K4"])
+    check_k5(dev, cmps["K5"])
     check_k5_swap(dev, cmps["K5s"], cmps["K5a"])
     paths = {"stripe_server": serve(dev)}
     paths["hops"] = hops(dev, Compare())

@@ -1,4 +1,5 @@
-"""Kernels K4 (xor_fold_crc) and K5 (the full-Gram score_batch, and the
+"""Kernels K4 (xor_fold_crc, eagerly and replayed from a CUDA graph, and
+its earlier atomic form xor_fold_crc_atomic) and K5 (the full-Gram score_batch, and the
 swap scorer's swap_score and swap_apply) against their plain PyTorch
 versions on a CUDA card, and the placement solver on the card against the
 same solve on the CPU. Tolerance 0.
@@ -19,7 +20,8 @@ from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
 from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
                                          swap_score, swap_score_plain,
                                          swap_state)
-from tpu3fs_torch.ops.xor_fold import xor_fold_crc, xor_fold_crc_plain
+from tpu3fs_torch.ops.xor_fold import (xor_fold_crc, xor_fold_crc_atomic,
+                                       xor_fold_crc_plain)
 from tpu3fs_torch.placement import PlacementProblem, solve_placement
 from tpu3fs_torch.placement.solver import _propose_moves
 
@@ -31,19 +33,84 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# K4's timing shapes (chip_smoke.py FOLD_SHAPES): the chain write batch,
+# the dry run, a 4 MiB chunk's shards, one long row, ICI buckets of medium
+# and small writes, a ragged S
+FOLD_SHAPES = [(12, 1 << 20), (2, 128), (12, 349_696), (1, 64 << 20),
+               (64, 64 << 10), (1024, 4096), (12, (1 << 20) + 3)]
+
+
+def _fold_input(batch, size, offset, seed, device):
+    flat = np.random.default_rng(seed).integers(
+        0, 256, batch * size + offset, dtype=np.uint8)
+    return torch.from_numpy(flat).to(device)[offset:].view(batch, size)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,size,offset", [
     (12, 1 << 20, 0), (5, 4096, 1), (3, 1021, 0), (3, 1022, 3), (2, 7, 0),
-    (1, 0, 0), (0, 64, 0)])
+    (1, 0, 0), (0, 64, 0)] + [(b, s, o) for b, s in FOLD_SHAPES
+                              for o in range(16)])
 def test_xor_fold_crc_kernel_matches_plain(cuda_device, batch, size, offset):
-    flat = np.random.default_rng(size).integers(
-        0, 256, batch * size + offset).astype(np.uint8)
-    x = torch.from_numpy(flat).to(cuda_device)[offset:].view(batch, size)
+    x = _fold_input(batch, size, offset, size + offset, cuda_device)
     launches = xor_fold_crc.launches
     got = xor_fold_crc(x)
     assert xor_fold_crc.launches == launches + int(batch * size > 0)
     want = xor_fold_crc_plain(x)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,size", FOLD_SHAPES)
+def test_xor_fold_crc_graph_replays_match_plain(cuda_device, batch, size):
+    """One call captured in a CUDA graph, replayed three times on fresh
+    inputs copied into the captured buffer."""
+    static = _fold_input(batch, size, 0, 1, cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xor_fold_crc(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = xor_fold_crc(static)
+    for rep in range(3):
+        static.copy_(_fold_input(batch, size, 0, 10 + rep, cuda_device))
+        graph.replay()
+        want = xor_fold_crc_plain(static)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,size", [(1, 64 << 20), (2, 8 << 20),
+                                        (12, 1 << 20)])
+def test_xor_fold_crc_on_two_streams_at_once(cuda_device, batch, size):
+    """Calls on two streams run at once; the grid route's workspace is the
+    call's own, so neither disturbs the other."""
+    xs = [_fold_input(batch, size, o, 20 + o, cuda_device) for o in (0, 5)]
+    streams = [torch.cuda.Stream() for _ in xs]
+    outs = []
+    torch.cuda.synchronize()
+    for _ in range(10):
+        for x, st in zip(xs, streams):
+            with torch.cuda.stream(st):
+                outs.append((x, xor_fold_crc(x)))
+    torch.cuda.synchronize()
+    for x, got in outs:
+        want = xor_fold_crc_plain(x)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,size,offset", [
+    (b, s, o) for b, s in FOLD_SHAPES for o in (0, 1, 3, 8)])
+def test_xor_fold_crc_matches_atomic_kernel(cuda_device, batch, size, offset):
+    x = _fold_input(batch, size, offset, 7 * size + offset, cuda_device)
+    launches = xor_fold_crc_atomic.launches
+    old = xor_fold_crc_atomic(x)
+    assert xor_fold_crc_atomic.launches == launches + 1
+    assert torch.equal(xor_fold_crc(x).view(torch.int32),
+                       old.view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -37,7 +37,8 @@ _SIGNATURES = {
     "tpu3fs_crc32c_mma": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "tpu3fs_mma_rate": [_I64, _I64, _I64, _P, _P],
     "tpu3fs_xor_reduce": [_P, _P, _I64, _I64, _I64, _P],
-    "tpu3fs_xor_fold": [_P, _P, _I64, _I64, _P],
+    "tpu3fs_xor_fold": [_P, _P, _P] + [_I64] * 6 + [_P],
+    "tpu3fs_xor_fold_atomic": [_P, _P, _I64, _I64, _P],
     "tpu3fs_placement_score": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "tpu3fs_swap_score": [_P] * 8 + [_I64] * 4 + [_P],
     "tpu3fs_swap_apply": [_P] * 7 + [_I64] * 5 + [_P],
