@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the tpu3fs_torch data plane and chain-table placement on one CUDA
-card.
+"""Drive the tpu3fs_torch data plane, chain-table placement and storage
+tier on one CUDA card.
 
 Run from the repository root, with one card:
 
@@ -46,7 +46,26 @@ Phases, in order (any failure exits non-zero):
      holds one NCCL rank, so the chain ring and the rebuild's all-gather
      (chain > 1) are not reached here: they are held against the JAX
      package on gloo ranks by tests/test_torch_parallel.py;
- 10. chain-table placement through entry.gen_chain_table: the 180-node CR
+ 10. the storage tier answering requests: crc32c_many (one K2 launch over
+     front-padded rows) against crc32c_py at lengths 0, 1, 511, 512, 513,
+     349,696 and 1 MiB + 3; then 16 StorageServices in one process over a
+     hand-made RoutingInfo and a direct-dispatch messenger (in_process):
+     (1) a CR chain of 3 takes 64 chunks of 1 MiB with batch_write and 32
+     partial overwrites, and every replica reads back the bytes written,
+     with equal versions and checksums; (2) 16 RS(12,4) stripes of 4 MiB
+     (S = 349,696) are encoded here and staged and committed through
+     batch_write_shard; (3) the same 16 go through chain_encode, and every
+     stored shard equals its client-encoded twin; (4) with data shard 1 and
+     parity shard 12 down, all 32 stripes read back through decodes;
+     (5) EcResyncWorker.run_once rebuilds shard 1 onto an empty engine, each
+     shard and CRC equal to the original; (6) the CR tail misses 32 writes,
+     re-joins and ResyncWorker brings it back, serving the same bytes.
+     Steps 1-6 run on the card (the main path; K1 and K2 must launch and no
+     plain version run), on the CPU with the plain versions and, after
+     phase 12's traces, again on the card under torch.profiler (each
+     request's device time): all three must give the same replies, bytes,
+     versions and checksums;
+ 11. chain-table placement through entry.gen_chain_table: the 180-node CR
      table (width 3, 96 targets per node: b = 5760 chains, 128 proposals a
      step, 200 steps, the CLI's default) and the EC(12,4) table (16 targets
      per node, 18 racks of 10 nodes, at most 4 members of a chain per rack,
@@ -58,17 +77,17 @@ Phases, in order (any failure exits non-zero):
      build from the final table; steps, λ against its lower bound, and one
      CR step's split (draws, copy in, swap kernel, copy back, apply) beside
      the full-Gram route's (proposals, copy in, score_batch, copy back);
- 11. times with CUDA events at the main path's shapes, the earlier kernel
+ 12. times with CUDA events at the main path's shapes, the earlier kernel
      (or the plain version) and the new one in turns, beside each kernel's
      bound and its plain version's time (K4 at every shape of FOLD_SHAPES,
      from CUDA graphs and eagerly, and a torch.profiler trace of a graph
      of K4 calls: the new kernel must be one kernel a call, no memset); the
      times of the hop ops and the one-rank chain step.
-Phases 7, 8, 9 and 10 are the main path: every kernel count is set to 0
-just before each and read just after; every K1 and K2 launch there must be
-a tensor-core one and every K3, K4 and K5 call a kernel launch (K4 on the
-main path is the one-launch kernel, never the atomic one; K5 the swap scorer; the
-full-Gram score_batch is its check).
+Phases 7-11 are the main path: every kernel count is set to 0 just
+before each and read just after; every K1 and K2 launch there must be a
+tensor-core one and every K1-K5 call a kernel launch, none a plain version
+(K4 on the main path is the one-launch kernel, never the atomic one; K5
+the swap scorer; the full-Gram score_batch is its check).
 ``python3 chip_smoke.py --fold-variants`` instead builds the kernels and
 times K4's launch plan varied (fold_variants).
 The line before the last is the kernels' JSON record; the last line is
@@ -77,6 +96,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import socket
@@ -219,9 +239,11 @@ def bound_ms(nbytes: float, int8_ops: float):
 
 def counters() -> dict:
     """name -> (function, attribute) of every kernel wrapper's launch count,
-    and of the call counts of K3's, K4's and K5's plain versions."""
-    from tpu3fs_torch.ops.crc32c import crc32c_blocks, crc32c_blocks_table
-    from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, gf2_matmul_bitslice
+    and of the call counts of the kernels' plain versions."""
+    from tpu3fs_torch.ops.crc32c import (BatchCrc32c, crc32c_blocks,
+                                         crc32c_blocks_table)
+    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_bitslice,
+                                             gf2_matmul_plain)
     from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
     from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
                                              swap_score, swap_score_plain)
@@ -231,8 +253,10 @@ def counters() -> dict:
 
     return {"gf2_matmul": (gf2_matmul, "launches"),
             "gf2_matmul_bitslice": (gf2_matmul_bitslice, "launches"),
+            "gf2_matmul_plain": (gf2_matmul_plain, "calls"),
             "crc32c_blocks": (crc32c_blocks, "launches"),
             "crc32c_blocks_table": (crc32c_blocks_table, "launches"),
+            "crc32c_plain": (BatchCrc32c.compute, "calls"),
             "xor_reduce": (xor_reduce, "launches"),
             "xor_reduce_plain": (xor_reduce_plain, "calls"),
             "xor_fold_crc": (xor_fold_crc, "launches"),
@@ -258,17 +282,18 @@ def zero_counts() -> None:
 def require_main_path(path: str, counts: dict, launched) -> None:
     """Every kernel in ``launched`` ran in this path; no K1 or K2 launch
     took the earlier integer-unit kernels, no K4 launch the atomic kernel and
-    no K3, K4 or K5 call its plain version."""
+    no call went to a kernel's plain version."""
     for name in launched:
         require(counts[name] > 0, f"{name} was not launched on {path}")
     for name in ("gf2_matmul_bitslice", "crc32c_blocks_table",
+                 "gf2_matmul_plain", "crc32c_plain",
                  "xor_reduce_plain", "xor_fold_crc_plain",
                  "xor_fold_crc_atomic", "score_batch_plain",
                  "swap_score_plain", "swap_apply_plain"):
         require(counts[name] == 0,
                 f"{name} ran on {path}: every K1 and K2 launch there must "
-                "be a tensor-core launch and every K3, K4 and K5 call a "
-                "launch of its new kernel")
+                "be a tensor-core launch and every K1-K5 call a launch of "
+                "its new kernel")
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -971,6 +996,451 @@ def multi_device(dev):
 
 
 # -- phase 10 ----------------------------------------------------------------
+# the storage tier's shapes: 1 MiB CR chunks (DEFAULT_CHUNK_SIZE) on a chain
+# of 3, 4 MiB EC chunks at RS(12,4) over 16 nodes
+CR_CHUNK, CR_CHUNKS, EC_STRIPES = MIB, 64, 16
+FIRST_NODE, FIRST_TARGET, CR_CHAIN, EC_CHAIN = 10, 1000, 900_001, 900_002
+CRC_LENGTHS = [0, 1, 511, 512, 513, S_CHUNK, MIB + 3]
+_TUPLE_ARGS = {"stat_chunks", "remove_chunk", "remove_file_chunks",
+               "query_last_chunk", "truncate_file_chunks"}
+_METHODS = _TUPLE_ARGS | {
+    "write", "write_shard", "update", "read", "read_rebuild",
+    "batch_read_rebuild", "batch_read", "batch_write", "batch_update",
+    "batch_write_shard", "chain_encode", "dump_chunkmeta",
+    "dump_pending_chunkmeta", "sync_done"}
+
+
+class Tier:
+    """16 StorageServices in one process over a hand-made RoutingInfo: the
+    CR chain on nodes 0, 2 and 3, the EC chain over all 16, one target of
+    a chain per node. ``send`` is a direct-dispatch messenger modelled on
+    the fabric's, marked ``in_process`` as the fabric is; the tier plays
+    mgmtd's part (``fail_node``, ``rejoin_node``, ``promote_synced``)."""
+
+    in_process = True
+
+    def __init__(self, dev):
+        from tpu3fs_torch.mgmtd import types as T
+        from tpu3fs_torch.storage.craq import StorageService
+        from tpu3fs_torch.storage.target import StorageTarget
+
+        self.T, self.dev, self.Target = T, dev, StorageTarget
+        self.routing = T.RoutingInfo(version=1)
+        self.services, self.down, self.synced = {}, set(), set()
+        for i in range(K + M):
+            nid = FIRST_NODE + i
+            self.routing.nodes[nid] = T.NodeInfo(
+                nid, T.NodeType.STORAGE,
+                status=T.NodeStatus.HEARTBEAT_CONNECTED)
+            self.services[nid] = StorageService(nid, lambda: self.routing,
+                                                self.send, device=dev)
+        tid = FIRST_TARGET
+        for chain_id, nodes, k, m, size in (
+                (CR_CHAIN, [0, 2, 3], 0, 0, CR_CHUNK),
+                (EC_CHAIN, range(K + M), K, M, S_CHUNK)):
+            tids = []
+            for ni in nodes:
+                self.routing.targets[tid] = T.TargetInfo(
+                    tid, node_id=FIRST_NODE + ni, chain_id=chain_id,
+                    public_state=T.PublicTargetState.SERVING,
+                    local_state=T.LocalTargetState.UPTODATE)
+                self.services[FIRST_NODE + ni].add_target(StorageTarget(
+                    tid, chain_id, chunk_size=size, device=dev))
+                tids.append(tid)
+                tid += 1
+            self.routing.chains[chain_id] = T.ChainInfo(
+                chain_id, 1, [T.ChainTarget(t) for t in tids], tids,
+                ec_k=k, ec_m=m)
+
+    def send(self, node_id: int, method: str, payload):
+        from tpu3fs_torch.utils.result import Code, FsError, Status
+
+        if node_id in self.down or node_id not in self.services:
+            raise FsError(Status(Code.RPC_CONNECT_FAILED, f"node {node_id} down"))
+        if method not in _METHODS:
+            raise FsError(Status(Code.RPC_METHOD_NOT_FOUND, method))
+        if method == "sync_done":
+            self.synced.add(payload)
+        fn = getattr(self.services[node_id], method)
+        return fn(*payload) if method in _TUPLE_ARGS else fn(payload)
+
+    def node_of(self, target_id: int) -> int:
+        return self.routing.targets[target_id].node_id
+
+    def service_of(self, target_id: int):
+        return self.services[self.node_of(target_id)]
+
+    def chain(self, chain_id: int):
+        return self.routing.chains[chain_id]
+
+    def _set_state(self, target_id: int, state) -> None:
+        info = self.routing.targets[target_id]
+        info.public_state = state
+        chain = self.routing.chains[info.chain_id]
+        ct = next(t for t in chain.targets if t.target_id == target_id)
+        ct.public_state = state
+        if state != self.T.PublicTargetState.SERVING:
+            chain.targets.remove(ct)  # to the chain's end, as mgmtd does
+            chain.targets.append(ct)
+        chain.chain_version += 1
+        self.routing.version += 1
+
+    def fail_node(self, node_id: int) -> None:
+        self.down.add(node_id)
+        for tid, info in self.routing.targets.items():
+            if info.node_id == node_id:
+                self._set_state(tid, self.T.PublicTargetState.OFFLINE)
+
+    def rejoin_node(self, node_id: int, wipe: bool) -> None:
+        self.down.discard(node_id)
+        svc = self.services[node_id]
+        for tid, info in self.routing.targets.items():
+            if info.node_id != node_id:
+                continue
+            if wipe:  # a replaced disk: an empty engine
+                old = svc.drop_target(tid)
+                svc.add_target(self.Target(tid, old.chain_id,
+                                           chunk_size=old.chunk_size,
+                                           device=self.dev))
+            self._set_state(tid, self.T.PublicTargetState.SYNCING)
+
+    def promote_synced(self) -> list:
+        done = sorted(self.synced)
+        for tid in done:
+            self._set_state(tid, self.T.PublicTargetState.SERVING)
+        self.synced.clear()
+        return done
+
+    def stored(self) -> dict:
+        """target id -> [(chunk id, versions, length, CRC, pending length
+        and CRC, aux, committed bytes)] of every target."""
+        out = {}
+        for svc in self.services.values():
+            for target in svc.targets():
+                eng = target.engine
+                out[target.target_id] = [
+                    ((m.chunk_id.file_id, m.chunk_id.index), m.committed_ver,
+                     m.pending_ver, m.length, m.checksum.value,
+                     m.pending_length, m.pending_checksum.value, m.aux,
+                     eng.read(m.chunk_id) if m.committed_ver else b"")
+                    for m in eng.all_metadata()]
+        return out
+
+    def close(self) -> None:
+        for svc in self.services.values():
+            svc.stop_workers()
+
+
+def storage_inputs() -> dict:
+    """The storage phase's requests' payloads, from one seed: 64 CR chunks
+    of 1 MiB down to 1 MiB - 63 x 4099 bytes, 32 partial overwrites, 16 EC
+    stripes of 4 MiB down to 4 MiB - 15 S/3, 32 chunks written while the CR
+    tail is down."""
+    rng = np.random.default_rng(31)
+    u8 = lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()  # noqa: E731
+    cr = [u8(CR_CHUNK - (CR_CHUNK // 256 + 3) * i) for i in range(CR_CHUNKS)]
+    over = []
+    for i in range(0, CR_CHUNKS, 2):
+        off = int(rng.integers(0, len(cr[i])))
+        over.append((i, off, u8(int(rng.integers(1, CR_CHUNK - off + 1)))))
+    ec = [u8(CHUNK_BYTES - (S_CHUNK // 3) * i) for i in range(EC_STRIPES)]
+    late = [u8(CR_CHUNK) for _ in range(1, CR_CHUNKS, 2)]
+    return {"cr": cr, "over": over, "ec": ec, "late": late}
+
+
+def storage_run(dev, inputs: dict, trace: bool = False) -> dict:
+    """Steps 1-6 of the storage phase on a fresh tier on ``dev``: the
+    record of every reply and read, the stored state, and each request's
+    host time (and, with ``trace``, its device time from a torch.profiler
+    trace). Every byte read back or rebuilt is checked here."""
+    from dataclasses import replace
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3fs_torch.ops.stripe import get_codec
+    from tpu3fs_torch.storage.craq import ReadReq, ShardWriteReq, WriteReq
+    from tpu3fs_torch.storage.ec_resync import EcResyncWorker
+    from tpu3fs_torch.storage.resync import ResyncWorker
+    from tpu3fs_torch.storage.types import ChunkId
+
+    cuda = dev.type == "cuda"
+    tier = Tier(dev)
+    codec = get_codec(K, M, S_CHUNK, device=dev)
+    rec, requests = [], {}
+
+    def request(name, fn):
+        before = read_counts()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if trace else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t) * 1e3
+        after = read_counts()
+        row = {"host_ms": host_ms, "launches": {
+            n: after[n] - before[n] for n in after if after[n] != before[n]}}
+        if trace:
+            row.update(device_split(prof))
+            row["device_share"] = row["device_ms"] / host_ms
+        requests[name] = row
+        return out
+
+    def reply(r):
+        return (int(r.code), getattr(r, "update_ver", 0), r.commit_ver,
+                r.checksum.value, r.checksum.length)
+
+    try:
+        # 1. CR: 64 chunks, partial overwrites, reads from every replica
+        cr = tier.chain(CR_CHAIN)
+        head = tier.service_of(cr.head().target_id)
+        want = {ChunkId(7, i): bytearray(d) for i, d in enumerate(inputs["cr"])}
+
+        def cr_write(items, seq):
+            return head.batch_write([WriteReq(
+                CR_CHAIN, tier.chain(CR_CHAIN).chain_version, cid, off, data,
+                CR_CHUNK, client_id="smoke", channel_id=1 + n, seqnum=seq)
+                for n, (cid, off, data) in enumerate(items)])
+
+        got = request("cr_write_64x1MiB", lambda: cr_write(
+            [(cid, 0, bytes(d)) for cid, d in want.items()], 1))
+        rec.append(("cr.write", [reply(r) for r in got]))
+        items = [(ChunkId(7, i), off, d) for i, off, d in inputs["over"]]
+        got = request("cr_overwrite_32_partial", lambda: cr_write(items, 2))
+        rec.append(("cr.overwrite", [reply(r) for r in got]))
+        for cid, off, d in items:
+            buf = want[cid]
+            buf.extend(b"\x00" * max(0, off + len(d) - len(buf)))
+            buf[off:off + len(d)] = d
+
+        def read_all(tid):
+            svc = tier.service_of(tid)
+            return [svc.read(ReadReq(CR_CHAIN, cid, 0, -1, tid)) for cid in want]
+        reads = request("cr_read_3x64", lambda: [read_all(t.target_id)
+                                                 for t in cr.targets])
+        for got in reads:
+            require(all(r.ok and bytes(r.data) == want[cid]
+                        for r, cid in zip(got, want)), "a CR replica's bytes")
+            require([reply(r) for r in got] == [reply(r) for r in reads[0]],
+                    "CR replicas' versions or checksums differ")
+        rec.append(("cr.read", [reply(r) for r in reads[0]]))
+
+        # 2-3. EC: 16 stripes client-encoded, the same 16 chain-encoded
+        ec = tier.chain(EC_CHAIN)
+        targets = [ec.target_of_shard(j).target_id for j in range(K + M)]
+
+        def by_node(reqs):
+            groups = {}
+            for n, r in enumerate(reqs):
+                groups.setdefault(tier.node_of(r.target_id), []).append(n)
+            out = [None] * len(reqs)
+            for nid, idxs in groups.items():
+                for n, r in zip(idxs, tier.send(nid, "batch_write_shard",
+                                                [reqs[n] for n in idxs])):
+                    out[n] = r
+            return out
+
+        def shard_req(cid, j, data, payload, crc):
+            return ShardWriteReq(
+                chain_id=EC_CHAIN, chain_ver=ec.chain_version,
+                target_id=targets[j], chunk_id=cid, data=payload, crc=crc,
+                update_ver=1, chunk_size=S_CHUNK, logical_len=len(data),
+                phase=1)
+
+        def client_encoded():
+            buf = np.zeros((EC_STRIPES, K, S_CHUNK), dtype=np.uint8)
+            for b, data in enumerate(inputs["ec"]):
+                buf[b].reshape(-1)[:len(data)] = np.frombuffer(data, np.uint8)
+            parity, crcs = codec.encode_parity(buf)
+            reqs = []
+            for b, data in enumerate(inputs["ec"]):
+                for j in range(K + M):
+                    payload = (data[j * S_CHUNK:(j + 1) * S_CHUNK] if j < K
+                               else parity[b, j - K].tobytes())
+                    crc = (int(crcs[b, j]) if len(payload) == S_CHUNK
+                           else codec.crc_host(payload))
+                    reqs.append(shard_req(ChunkId(8, b), j, data, payload, crc))
+            staged = by_node(reqs)
+            return staged + by_node([replace(r, data=b"", crc=0, phase=2)
+                                     for r in reqs])
+
+        def chain_encoded():
+            reqs = [shard_req(ChunkId(9, b), j, data,
+                              data[j * S_CHUNK:(j + 1) * S_CHUNK] if j < K
+                              else b"", -1)
+                    for b, data in enumerate(inputs["ec"]) for j in range(K + M)]
+            staged = tier.send(tier.node_of(targets[0]), "chain_encode", reqs)
+            return staged + by_node([replace(r, data=b"", crc=0, phase=2)
+                                     for r in reqs])
+
+        for name, fn in (("ec.write_shard", client_encoded),
+                         ("ec.chain_encode", chain_encoded)):
+            got = request(f"{name[3:]}_16x4MiB", fn)
+            require(all(r.ok for r in got), f"{name}: a shard was refused")
+            rec.append((name, [reply(r) for r in got]))
+        held = tier.stored()
+        for tid in targets:  # the golden equality of the chain encode
+            rows = {}
+            for row in held[tid]:
+                rows.setdefault(row[0][0], []).append(row[1:])
+            require(rows[8] == rows[9], f"target {tid}: chain-encoded "
+                    "shards differ from client-encoded ones")
+
+        # 4. degraded read: data shard 1 and parity shard 12 down
+        data_t, parity_t = targets[1], targets[K]
+        before = held[data_t]
+        tier.fail_node(tier.node_of(data_t))
+        tier.fail_node(tier.node_of(parity_t))
+        stripes = [(ChunkId(f, b), d) for f in (8, 9)
+                   for b, d in enumerate(inputs["ec"])]
+
+        def degraded_read():
+            out = []
+            chain = tier.chain(EC_CHAIN)
+            for cid, _ in stripes:
+                shards, logical = {}, 0
+                for j in range(K + M):
+                    t = chain.target_of_shard(j)
+                    if len(shards) == K or not t.public_state.can_read:
+                        continue
+                    r = tier.service_of(t.target_id).read(ReadReq(
+                        EC_CHAIN, cid, 0, -1, t.target_id, chunk_size=S_CHUNK))
+                    require(r.ok, f"shard {j} of {cid}: {r.code!r}")
+                    shards[j] = bytes(r.data).ljust(S_CHUNK, b"\x00")
+                    logical = max(logical, r.logical_len)
+                present = sorted(shards)
+                lost = [j for j in range(K) if j not in shards]
+                surv = np.stack([np.frombuffer(shards[j], np.uint8)
+                                 for j in present])[None]
+                back = codec.reconstruct_batch(present, lost, surv)
+                for n, j in enumerate(lost):
+                    shards[j] = back[0, n].tobytes()
+                out.append(b"".join(shards[j] for j in range(K))[:logical])
+            return out
+        got = request("degraded_read_32x4MiB", degraded_read)
+        require(got == [d for _, d in stripes], "a degraded read's bytes")
+        rec.append(("ec.degraded_read", len(got)))
+
+        # 5. EC rebuild of the data target onto an empty engine
+        tier.rejoin_node(tier.node_of(data_t), wipe=True)
+        coordinator = tier.chain(EC_CHAIN).serving_targets()[0].target_id
+        worker = EcResyncWorker(tier.service_of(coordinator), tier.send,
+                                batch_stripes=EC_STRIPES, device=dev)
+        moved = request("ec_rebuild_round", worker.run_once)
+        requests["ec_rebuild_round"]["rebuild_mibps"] = \
+            worker.last_stats["mibps"]
+        rec.append(("ec.rebuild", moved, tier.promote_synced()))
+        require(moved == len(stripes), f"EC rebuild moved {moved}")
+        require(tier.stored()[data_t] == before,
+                "a rebuilt shard or its CRC differs from the original")
+
+        # 6. CR resync: the tail misses 32 writes, then re-joins
+        tail = cr.targets[-1].target_id
+        tier.fail_node(tier.node_of(tail))
+        items = [(ChunkId(7, i), 0, d)
+                 for i, d in zip(range(1, CR_CHUNKS, 2), inputs["late"])]
+        got = cr_write(items, 3)
+        require(all(r.ok for r in got), "a write with the tail down")
+        for cid, _, d in items:
+            want[cid] = bytearray(d)
+        tier.rejoin_node(tier.node_of(tail), wipe=False)
+        moved = request("cr_resync_round", lambda: sum(
+            ResyncWorker(svc, tier.send).run_once()
+            for nid, svc in sorted(tier.services.items())
+            if nid not in tier.down))
+        rec.append(("cr.resync", moved, tier.promote_synced()))
+        require(moved == len(items), f"CR resync moved {moved}")
+        got = read_all(tail)
+        require(all(r.ok and bytes(r.data) == want[cid]
+                    for r, cid in zip(got, want)), "the resynced target's bytes")
+        rec.append(("cr.read_resynced", [reply(r) for r in got]))
+        return {"record": rec, "stored": tier.stored(), "requests": requests,
+                "chunk0": (bytes(want[ChunkId(7, 0)]), got[0].checksum.value)}
+    finally:
+        tier.close()
+
+
+def device_split(prof) -> dict:
+    """Device time in a torch.profiler trace: kernels, copies, memsets (ms)."""
+    split = {"kernel_ms": 0.0, "copy_ms": 0.0, "memset_ms": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        key = e.key.lower()
+        kind = ("copy_ms" if "memcpy" in key else
+                "memset_ms" if "memset" in key else "kernel_ms")
+        split[kind] += us / 1e3
+    split["device_ms"] = sum(split.values())
+    return split
+
+
+def storage(dev):
+    """The storage tier answers requests on the card (the main path) and on
+    the CPU with the plain versions: both routes must store the same bytes,
+    versions and checksums. Returns the card run's launch counts, and the
+    inputs and card run for ``storage_shares``."""
+    from tpu3fs_torch.ops.crc32c import crc32c_many, crc32c_py
+
+    t0 = phase("phase 10: the storage tier answers requests")
+    rng = np.random.default_rng(32)
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in CRC_LENGTHS]
+    n_k2 = read_counts()["crc32c_blocks"]
+    got = crc32c_many(bufs, device=dev)
+    require(read_counts()["crc32c_blocks"] == n_k2 + 1,
+            "crc32c_many is not one tensor-core K2 launch")
+    require(got == [crc32c_py(b) for b in bufs],
+            f"crc32c_many differs from crc32c_py at lengths {CRC_LENGTHS}")
+    require(crc32c_many(bufs, device="cpu") == got,
+            "crc32c_many's plain version differs on the CPU")
+    inputs = storage_inputs()
+    # warm-up: the codecs and the row codecs crc32c_many pads into
+    storage_run(dev, {"cr": inputs["cr"][:4], "over": inputs["over"][:2],
+                      "ec": inputs["ec"][:2], "late": inputs["late"][:2]})
+    zero_counts()
+    card = storage_run(dev, inputs)
+    counts = read_counts()
+    require_main_path("the storage tier", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    chunk, crc = card["chunk0"]
+    require(crc == crc32c_py(chunk), "a stored CRC differs from crc32c_py")
+    t_cpu = time.perf_counter()
+    cpu = storage_run(torch.device("cpu"), inputs)
+    card["cpu_route_s"] = time.perf_counter() - t_cpu
+    require_same_run(cpu, card, "the CPU run")
+    log(f"storage: launches {counts}, CPU route "
+        f"{card['cpu_route_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
+    return counts, inputs, card
+
+
+def require_same_run(run: dict, card: dict, name: str) -> None:
+    require(run["record"] == card["record"],
+            f"{name}'s replies differ from the card run's")
+    require(run["stored"] == card["stored"],
+            f"{name} stored other bytes, versions or checksums")
+
+
+def storage_shares(dev, inputs: dict, card: dict) -> None:
+    """Steps 1-6 again on the card, each request under torch.profiler for
+    its device time (kernels, copies); logs every request's host time from
+    the main path's run beside the traced run's host and device times.
+    Runs after phase 12's traces, which its profiler sessions must not
+    precede."""
+    t0 = phase("phase 10 (continued): the storage requests' device time")
+    traced = storage_run(dev, inputs, trace=True)
+    require_same_run(traced, card, "the traced card run")
+    rows = {name: dict(row, traced=traced["requests"][name])
+            for name, row in card["requests"].items()}
+    log(json.dumps({"storage_requests": rows,
+                    "cpu_route_s": card["cpu_route_s"],
+                    "shapes": "CR chain of 3, 1 MiB chunks; RS(12,4) over "
+                              "16 nodes, 4 MiB chunks, S=349,696"}))
+    log(f"storage shares ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 11 ----------------------------------------------------------------
 def incidence_of_lines(lines, nodes: int) -> np.ndarray:
     """The (chains, nodes) incidence that a command file lays: its
     create-target lines name each chain's member nodes (node ids 10 + i)."""
@@ -1035,7 +1505,7 @@ def placement(dev, cmp: Compare) -> dict:
                                              swap_state)
     from tpu3fs_torch.placement import PlacementProblem, check_solution
 
-    t0 = phase("phase 10: chain-table placement through entry.gen_chain_table")
+    t0 = phase("phase 11: chain-table placement through entry.gen_chain_table")
     racks = [f"rack{i * RACKS // PLACE_NODES}" for i in range(PLACE_NODES)]
     tables = {
         "cr": (CR_WIDTH, CR_TARGETS, dict(steps=PLACE_STEPS),
@@ -1258,7 +1728,7 @@ def placement(dev, cmp: Compare) -> dict:
     return total
 
 
-# -- phase 11 ----------------------------------------------------------------
+# -- phase 12 ----------------------------------------------------------------
 def mma_rates(dev) -> dict:
     """Issue rate of the two mma forms on register operands, every SM busy
     (csrc/mma_rate.cu): the card's data sheet has no 1-bit rate."""
@@ -1527,7 +1997,7 @@ def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.stripe import StripeCodec
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
 
-    phase("phase 11: times (CUDA events, after warm-up)")
+    phase("phase 12: times (CUDA events, after warm-up)")
     rs = RSCode(K, M, device=dev)
     B, S = B_WRITE, S_WRITE
     data = rand_u8((B, K, S), 11, dev)
@@ -1763,8 +2233,10 @@ def main() -> int:
     paths = {"stripe_server": serve(dev)}
     paths["hops"] = hops(dev, Compare())
     paths["multi_device"] = multi_device(dev)
+    paths["storage"], inputs, card = storage(dev)
     paths["placement"] = placement(dev, Compare())
     kernels = times(dev, paths, cmps)
+    storage_shares(dev, inputs, card)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

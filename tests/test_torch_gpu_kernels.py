@@ -1,8 +1,10 @@
 """Kernels K4 (xor_fold_crc, eagerly and replayed from a CUDA graph, and
 its earlier atomic form xor_fold_crc_atomic) and K5 (the full-Gram score_batch, and the
 swap scorer's swap_score and swap_apply) against their plain PyTorch
-versions on a CUDA card, and the placement solver on the card against the
-same solve on the CPU. Tolerance 0.
+versions on a CUDA card, the placement solver on the card against the
+same solve on the CPU, ``crc32c_many`` (one K2 launch) against
+``crc32c_py``, and the storage tier's CR and EC writes served on the card
+against the same requests on the CPU. Tolerance 0.
 
 Every test carries the ``gpu`` marker and skips without a card. The file
 imports neither JAX nor the JAX package, so it runs on a machine with a
@@ -16,7 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from tpu3fs_torch.ops.crc32c import (BatchCrc32c, crc32c_blocks, crc32c_many,
+                                     crc32c_py)
+from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, gf2_matmul_plain
 from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
+from tpu3fs_torch.ops.stripe import get_codec
 from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
                                          swap_score, swap_score_plain,
                                          swap_state)
@@ -24,6 +30,7 @@ from tpu3fs_torch.ops.xor_fold import (xor_fold_crc, xor_fold_crc_atomic,
                                        xor_fold_crc_plain)
 from tpu3fs_torch.placement import PlacementProblem, solve_placement
 from tpu3fs_torch.placement.solver import _propose_moves
+from torch_storage_tier import CR_CHAIN, EC_CHAIN, Tier, run_sequence
 
 
 @pytest.fixture
@@ -201,3 +208,44 @@ def test_swap_apply_kernel_matches_plain(cuda_device, n_dom):
                 assert torch.equal(getattr(kernel_state, name), want), name
                 assert torch.equal(getattr(plain_state, name), want), name
     assert swap_apply.launches == launches + 200
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [0, 1, 511, 512, 513, 349_696,
+                                    (1 << 20) + 3])
+def test_crc32c_many_on_the_card_matches_crc32c_py(cuda_device, length):
+    rng = np.random.default_rng(length)
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in (length, length // 3, 1)]
+    launches = crc32c_blocks.launches
+    got = crc32c_many(bufs, device=cuda_device)
+    assert crc32c_blocks.launches == launches + 1
+    assert got == [crc32c_py(b) for b in bufs]
+
+
+@pytest.mark.gpu
+def test_storage_tier_on_the_card_matches_the_cpu(cuda_device):
+    """CR writes and reads, EC client-encoded and chain-encoded writes, a
+    degraded read, the EC rebuild and the CR resync served by the tier on
+    the card: the same replies and stored bytes as on the CPU, through K1
+    and K2 with no plain call."""
+    k, m, S = 4, 2, 16384
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        tier = Tier("tpu3fs_torch", k + m,
+                    [(CR_CHAIN, [0, 2, 3], 0, 0, 1 << 16),
+                     (EC_CHAIN, list(range(k + m)), k, m, S)], device=dev)
+        counts = (gf2_matmul.launches, crc32c_blocks.launches,
+                  gf2_matmul_plain.calls, BatchCrc32c.compute.calls)
+        try:
+            rec, _ = run_sequence(tier, get_codec(k, m, S, device=dev),
+                                  seed=5, cr_chunks=4, stripes=2)
+            out[dev.type] = (rec, tier.stored())
+        finally:
+            tier.close()
+        if dev.type == "cuda":
+            assert gf2_matmul.launches > counts[0]
+            assert crc32c_blocks.launches > counts[1]
+            assert (gf2_matmul_plain.calls, BatchCrc32c.compute.calls) \
+                == counts[2:]
+    assert out["cuda"] == out["cpu"]

@@ -1,20 +1,25 @@
-"""Carry codec state across from the JAX package as numpy arrays.
+"""Carry state across from the JAX package as plain values.
 
 ``codec_from_arrays`` builds the port's codec from the arrays a JAX
 ``RSCode``/``BatchCrc32c`` holds, so the two can be shown to compute the same
-function from the same state. The caller reads the arrays; this module never
-imports ``tpu3fs``.
+function from the same state. ``engine_from_chunks`` loads a plain dump of
+a storage target's committed chunks into the port's ``MemChunkEngine``.
+The caller reads the arrays and the dump; this module never imports
+``tpu3fs``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Mapping
 
 import numpy as np
 
 from tpu3fs_torch.ops.crc32c import BatchCrc32c
 from tpu3fs_torch.ops.rs import RSCode
 from tpu3fs_torch.ops.stripe import StripeCodec
+from tpu3fs_torch.storage.engine import MemChunkEngine
+from tpu3fs_torch.storage.types import ChunkId
+from tpu3fs_torch.utils.result import Code, FsError
 
 
 def codec_from_arrays(arrays: Dict[str, np.ndarray], device=None) -> StripeCodec:
@@ -32,3 +37,31 @@ def codec_from_arrays(arrays: Dict[str, np.ndarray], device=None) -> StripeCodec
     crc = BatchCrc32c.from_arrays(arrays["crc_b_t"], arrays["crc_ks"],
                                   arrays["crc_const"], device=device)
     return StripeCodec.from_parts(rs, crc)
+
+
+def engine_from_chunks(chunks: Iterable[Mapping], device=None) -> MemChunkEngine:
+    """A ``MemChunkEngine`` on ``device`` holding the dumped chunks.
+
+    Each entry gives ``chunk_id`` (file id, index), ``committed_ver``,
+    ``chain_ver``, ``data`` (the committed bytes), ``crc`` and ``length``,
+    and may give ``aux`` (an EC shard's stripe length). A chunk is installed
+    as committed content at its version through the engine's validated
+    install, which checksums it on ``device``: a CRC or a length that does
+    not match its bytes raises ``ValueError``."""
+    engine = MemChunkEngine(device=device)
+    for c in chunks:
+        cid = ChunkId(*c["chunk_id"])
+        data = bytes(c["data"])
+        if len(data) != c["length"]:
+            raise ValueError(f"chunk {cid}: {len(data)} bytes, length "
+                             f"{c['length']}")
+        try:
+            engine.update(cid, c["committed_ver"], c["chain_ver"], data, 0,
+                          full_replace=True, chunk_size=len(data),
+                          aux=c.get("aux", 0), expected_crc=c["crc"])
+        except FsError as e:
+            if e.code != Code.CHUNK_CHECKSUM_MISMATCH:
+                raise
+            raise ValueError(f"chunk {cid}: crc {c['crc']:#010x} does not "
+                             "match its bytes") from e
+    return engine

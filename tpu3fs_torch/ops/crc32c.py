@@ -16,12 +16,16 @@ tensor-core one (raw = B^T . bits as a 1-bit ``mma``) where
 Ks[j] and XOR-reduce. It runs the plain version ``compute`` (two float32
 matmuls over bit-planes, as the JAX codec's einsums) only for a tensor on
 the CPU.
+
+``crc32c_many`` checksums buffers of any lengths (the storage tier's chunk
+checksums) with one ``BatchCrc32c`` call over front-padded rows.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Union
+import threading
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -302,7 +306,8 @@ class BatchCrc32c:
 
         Exact: the first sum is at most 8 * block, the second 32 * N, both
         far below 2**24. Chunked along rows so the float expansion stays
-        bounded."""
+        bounded. ``BatchCrc32c.compute.calls`` counts its calls."""
+        BatchCrc32c.compute.calls += 1
         batch = chunks.shape[0]
         regs_out = torch.empty((batch,), dtype=torch.int64, device=chunks.device)
         step = max(1, _PLAIN_CHUNK_BYTES // (self.size * 8 * 4))
@@ -323,3 +328,60 @@ class BatchCrc32c:
             return self.compute(chunks)
         return crc32c_blocks(chunks, self._ks_cols, self._frags, self.block,
                              self._const)
+
+
+BatchCrc32c.compute.calls = 0
+
+# crc32c_many's row codecs, one per (row size, device), shared by the
+# storage tier's threads
+_many_lock = threading.Lock()
+_many_codecs: Dict[Tuple[int, torch.device], BatchCrc32c] = {}
+
+
+def padded_row_size(n: int) -> int:
+    """The row ``crc32c_many`` pads an n-byte buffer into: the next power
+    of two, at least 512 bytes. Few sizes, so few cached codecs."""
+    return max(512, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _row_codec(size: int, device: torch.device) -> BatchCrc32c:
+    key = (size, device)
+    with _many_lock:
+        crc = _many_codecs.get(key)
+        if crc is None:
+            crc = BatchCrc32c(size, block=512, device=device)
+            _many_codecs[key] = crc
+        return crc
+
+
+def _as_u8(buf) -> np.ndarray:
+    if isinstance(buf, np.ndarray):
+        return buf.reshape(-1).view(np.uint8)
+    if isinstance(buf, memoryview) and not buf.contiguous:
+        buf = buf.tobytes()
+    return np.frombuffer(buf, dtype=np.uint8)
+
+
+def crc32c_many(bufs: Sequence, device=None) -> List[int]:
+    """CRC32C of each buffer (bytes-like or numpy, any lengths) with one K2
+    launch on ``device`` (the plain version for the CPU).
+
+    The CRC is affine: crc(x) = lin(x) ^ crc32c_zeros(len(x)), with lin the
+    register advanced from 0, which leading zero bytes leave unchanged. So
+    each buffer is zero-padded at the FRONT into a row of L bytes
+    (``padded_row_size`` of the longest), the rows are checksummed in one
+    ``BatchCrc32c`` call, and row r's CRC is XORed with crc32c_zeros(L) ^
+    crc32c_zeros(len(x_r)) on the host."""
+    dev = resolve_device(device)
+    views = [_as_u8(b) for b in bufs]
+    if not views:
+        return []
+    size = padded_row_size(max(v.size for v in views))
+    rows = np.zeros((len(views), size), dtype=np.uint8)
+    for row, v in zip(rows, views):
+        if v.size:
+            row[size - v.size:] = v
+    crcs = _row_codec(size, dev)(torch.from_numpy(rows).to(dev))
+    raw = crcs.view(torch.int32).cpu().numpy().view(np.uint32)
+    pad = crc32c_zeros(size)
+    return [int(c) ^ pad ^ crc32c_zeros(v.size) for c, v in zip(raw, views)]

@@ -48,7 +48,9 @@ def _bit_matrix(cols: torch.Tensor) -> torch.Tensor:
 def gf2_matmul_plain(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: unpack to float32 bit-planes, one matmul with
     the bit matrix, mod 2, pack. Exact: each sum is at most 8k <= 2048.
-    Chunked along S so the 32x float expansion stays bounded."""
+    Chunked along S so the 32x float expansion stays bounded.
+    ``gf2_matmul_plain.calls`` counts its calls."""
+    gf2_matmul_plain.calls += 1
     o, k, _ = cols.shape
     *lead, kk, S = data.shape
     x = data.reshape(math.prod(lead), k, S)
@@ -60,6 +62,9 @@ def gf2_matmul_plain(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         acc = torch.matmul(A, bits)
         out[..., s0:s0 + step] = pack_bits(acc.to(torch.int64) & 1)
     return out.reshape(*lead, o, S)
+
+
+gf2_matmul_plain.calls = 0
 
 
 def tensor_core_takes(S: int, data_ptr: int) -> bool:

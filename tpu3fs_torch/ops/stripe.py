@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from tpu3fs_torch.device import as_tensor, resolve_device
-from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c
+from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c_many
 from tpu3fs_torch.ops.rs import RSCode
 
 # codecs hold device matrices: share one per (k, m, S, device) per process
@@ -182,9 +182,10 @@ class StripeCodec:
         return b"".join(data_shards)[:length]
 
     def crc_host(self, shard: bytes) -> int:
-        """Host CRC32C of one shard's stored (trimmed) bytes: the
-        ShardWriteReq.crc wire convention."""
-        return crc32c(shard)
+        """CRC32C of one shard's stored (trimmed) bytes, the
+        ShardWriteReq.crc wire convention: one ``crc32c_many`` call (K2)
+        on the codec's device."""
+        return crc32c_many([shard], self.device)[0]
 
 
 def trim_rebuilt_shard(

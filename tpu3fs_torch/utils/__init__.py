@@ -1,0 +1,12 @@
+"""Host utilities (``result``, ``config``, ``fault_injection``): the port's
+own copies of the modules of ``tpu3fs/utils/`` that the storage tier
+imports."""
+
+from tpu3fs_torch.utils.result import (  # noqa: F401
+    Code,
+    FsError,
+    Result,
+    Status,
+    make_error,
+)
+from tpu3fs_torch.utils.config import Config, ConfigItem  # noqa: F401
