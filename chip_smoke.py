@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the tpu3fs_torch data plane, chain-table placement and storage
-tier on one CUDA card.
+"""Drive the tpu3fs_torch data plane, chain-table placement, storage tier
+and serving stack on one CUDA card.
 
 Run from the repository root, with one card:
 
@@ -62,10 +62,30 @@ Phases, in order (any failure exits non-zero):
      re-joins and ResyncWorker brings it back, serving the same bytes.
      Steps 1-6 run on the card (the main path; K1 and K2 must launch and no
      plain version run), on the CPU with the plain versions and, after
-     phase 12's traces, again on the card under torch.profiler (each
+     phase 13's traces, again on the card under torch.profiler (each
      request's device time): all three must give the same replies, bytes,
      versions and checksums;
- 11. chain-table placement through entry.gen_chain_table: the 180-node CR
+ 11. the serving stack answering files through Fabric.meta and
+     Fabric.file_client() (Fabric(cfg, device)): RS(12,4) over 4 storage
+     nodes and 2 chains, 1 MiB stripes (S = 87,552), 48 a pass, as the
+     JAX package's serving benchmark (bench.py:286-337): (1) write /a, 48
+     full stripes through write_stripes; (2) read it; (3) one partial
+     overwrite inside stripe 1 (the delta-parity read-modify-write); (4)
+     fail the first node (4 shards of every stripe); (5) read /a degraded
+     (a K1 decode of 4 lost); (6) restart the node on empty engines and
+     resync_all(rounds=6) (the EC rebuild); (7) read /a; (8) write and
+     read /b with TPU3FS_EC_CHAIN_ENCODE=1 (the chain-encode hops); (9)
+     write and read /cr on a CR fabric at storage_bench's shape (2
+     replicas, 4 chains, 64 chunks of 256 KiB). A full-size warm-up pass
+     on its own fabric comes first. Every byte read is checked; all
+     shards of 4 stripes of /a and /b against encode_np and crc32c_py;
+     every CRC the engines hold against crc32c_many over its bytes. The
+     same sequence at 4 stripes (and 4 CR chunks) on the card and on the
+     CPU must give identical records (reads, stored chunks with versions
+     and CRCs, routing versions and target states, file lengths); after
+     phase 13 it runs again under torch.profiler for each request's device
+     share;
+ 12. chain-table placement through entry.gen_chain_table: the 180-node CR
      table (width 3, 96 targets per node: b = 5760 chains, 128 proposals a
      step, 200 steps, the CLI's default) and the EC(12,4) table (16 targets
      per node, 18 racks of 10 nodes, at most 4 members of a chain per rack,
@@ -77,13 +97,13 @@ Phases, in order (any failure exits non-zero):
      build from the final table; steps, λ against its lower bound, and one
      CR step's split (draws, copy in, swap kernel, copy back, apply) beside
      the full-Gram route's (proposals, copy in, score_batch, copy back);
- 12. times with CUDA events at the main path's shapes, the earlier kernel
+ 13. times with CUDA events at the main path's shapes, the earlier kernel
      (or the plain version) and the new one in turns, beside each kernel's
      bound and its plain version's time (K4 at every shape of FOLD_SHAPES,
      from CUDA graphs and eagerly, and a torch.profiler trace of a graph
      of K4 calls: the new kernel must be one kernel a call, no memset); the
      times of the hop ops and the one-rank chain step.
-Phases 7-11 are the main path: every kernel count is set to 0 just
+Phases 7-12 are the main path: every kernel count is set to 0 just
 before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
@@ -1148,13 +1168,36 @@ def storage_inputs() -> dict:
     return {"cr": cr, "over": over, "ec": ec, "late": late}
 
 
+def timed_request(requests: dict, name: str, fn, dev, trace: bool):
+    """Run one request ``fn()`` on ``dev`` and record in ``requests[name]``
+    its host time (ending in a synchronise), the kernel launches it made
+    and, with ``trace``, its device time from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = read_counts()
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if trace else contextlib.nullcontext()) as prof:
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+    after = read_counts()
+    row = {"host_ms": host_ms, "launches": {
+        n: after[n] - before[n] for n in after if after[n] != before[n]}}
+    if trace:
+        row.update(device_split(prof))
+        row["device_share"] = row["device_ms"] / host_ms
+    requests[name] = row
+    return out
+
+
 def storage_run(dev, inputs: dict, trace: bool = False) -> dict:
     """Steps 1-6 of the storage phase on a fresh tier on ``dev``: the
     record of every reply and read, the stored state, and each request's
     host time (and, with ``trace``, its device time from a torch.profiler
     trace). Every byte read back or rebuilt is checked here."""
     from dataclasses import replace
-    from torch.profiler import ProfilerActivity, profile
 
     from tpu3fs_torch.ops.stripe import get_codec
     from tpu3fs_torch.storage.craq import ReadReq, ShardWriteReq, WriteReq
@@ -1162,28 +1205,12 @@ def storage_run(dev, inputs: dict, trace: bool = False) -> dict:
     from tpu3fs_torch.storage.resync import ResyncWorker
     from tpu3fs_torch.storage.types import ChunkId
 
-    cuda = dev.type == "cuda"
     tier = Tier(dev)
     codec = get_codec(K, M, S_CHUNK, device=dev)
     rec, requests = [], {}
 
     def request(name, fn):
-        before = read_counts()
-        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-              if trace else contextlib.nullcontext()) as prof:
-            t = time.perf_counter()
-            out = fn()
-            if cuda:
-                torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t) * 1e3
-        after = read_counts()
-        row = {"host_ms": host_ms, "launches": {
-            n: after[n] - before[n] for n in after if after[n] != before[n]}}
-        if trace:
-            row.update(device_split(prof))
-            row["device_share"] = row["device_ms"] / host_ms
-        requests[name] = row
-        return out
+        return timed_request(requests, name, fn, dev, trace)
 
     def reply(r):
         return (int(r.code), getattr(r, "update_ver", 0), r.commit_ver,
@@ -1426,7 +1453,7 @@ def storage_shares(dev, inputs: dict, card: dict) -> None:
     """Steps 1-6 again on the card, each request under torch.profiler for
     its device time (kernels, copies); logs every request's host time from
     the main path's run beside the traced run's host and device times.
-    Runs after phase 12's traces, which its profiler sessions must not
+    Runs after phase 13's traces, which its profiler sessions must not
     precede."""
     t0 = phase("phase 10 (continued): the storage requests' device time")
     traced = storage_run(dev, inputs, trace=True)
@@ -1441,6 +1468,273 @@ def storage_shares(dev, inputs: dict, card: dict) -> None:
 
 
 # -- phase 11 ----------------------------------------------------------------
+# the JAX package's serving benchmark with the device data plane
+# (bench.py:286-337): RS(12,4) over 4 storage nodes and 2 chains, 1 MiB
+# stripes (S = shard_size_of(1 MiB, 12) = 87,552), 48 a pass; the CR
+# fabric of storage_bench (bench.py:199-201): 2 replicas, 4 chains, 64
+# chunks of 256 KiB. The CPU route runs 4 stripes (and 4 CR chunks) a pass.
+FAB_NODES, FAB_CHAINS, FAB_STRIPES, FAB_CPU_STRIPES = 4, 2, 48, 4
+CR_FAB_CHUNK, CR_FAB_CHUNKS = 256 << 10, 64
+GOLD_STRIPES = 4  # stripes of each pass held against encode_np, crc32c_py
+
+
+@contextlib.contextmanager
+def deterministic(seed: int):
+    """EC stripe versions carry a writer nonce from ``os.urandom`` and a
+    file's layout seed comes from meta's ``time.time_ns``: both drawn from
+    ``seed`` for one run, so two runs of the sequence store the same
+    versions on the same chains. Each draw size has its own stream (a
+    nonce is 4 bytes), so other callers (uuid4's 16) cannot shift it."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from tpu3fs_torch.meta import store
+
+    streams = {}
+
+    def urandom(n: int) -> bytes:
+        rng = streams.setdefault(n, np.random.default_rng([seed, n]))
+        return rng.bytes(n)
+
+    ns = itertools.count(1_700_000_000_000_000_000, 1_000_003)
+    clock = SimpleNamespace(time=time.time, time_ns=lambda: next(ns))
+    with mock.patch("os.urandom", urandom), \
+            mock.patch.object(store, "time", clock):
+        yield
+
+
+def serving_inputs(depth: int) -> dict:
+    """The files of one pass, from one seed: ``/a`` and ``/b`` of
+    ``depth`` stripes, the partial overwrite of ``/a``, ``/cr`` of
+    ``depth`` (64 at full depth) chunks of 256 KiB."""
+    rng = np.random.default_rng(41)
+    u8 = lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()  # noqa: E731
+    cr = CR_FAB_CHUNKS if depth == FAB_STRIPES else depth
+    return {"a": u8(depth * MIB), "patch": (MIB + 1000, u8(5000)),
+            "b": u8(depth * MIB), "cr": u8(cr * CR_FAB_CHUNK)}
+
+
+def fabric_stored(fab) -> dict:
+    """target id -> [(chunk id, versions, length, CRC, pending length and
+    CRC, aux, sha256 of the committed bytes)] of every target."""
+    import hashlib
+
+    out = {}
+    for node in fab.nodes.values():
+        for target in node.service.targets():
+            eng = target.engine
+            out[target.target_id] = sorted(
+                ((m.chunk_id.file_id, m.chunk_id.index), m.committed_ver,
+                 m.pending_ver, m.length, m.checksum.value,
+                 m.pending_length, m.pending_checksum.value, m.aux,
+                 hashlib.sha256(eng.read(m.chunk_id) if m.committed_ver
+                                else b"").hexdigest())
+                for m in eng.all_metadata())
+    return out
+
+
+def fabric_routing(fab) -> tuple:
+    r = fab.routing()
+    return (r.version, {cid: (c.chain_version,
+                              [(t.target_id, t.public_state.name)
+                               for t in c.targets])
+                        for cid, c in sorted(r.chains.items())})
+
+
+def serving_run(dev, depth: int, trace: bool = False) -> dict:
+    """Steps 1-9 of the serving phase through ``Fabric.meta`` and
+    ``Fabric.file_client()`` on ``dev``, ``depth`` stripes a pass: the
+    record (replies' codes, sha256 of every read, every target's stored
+    chunks, routing versions and target states, file lengths), each
+    request's host time (and, with ``trace``, its device time), and the
+    fabrics and files for the checks. Every byte read is checked here."""
+    import hashlib
+    from unittest import mock
+
+    from tpu3fs_torch.fabric import Fabric, SystemSetupConfig
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.storage.engine import MemChunkEngine
+
+    inputs = serving_inputs(depth)
+    rec, requests = {"reads": []}, {}
+
+    def request(name, fn):
+        return timed_request(requests, name, fn, dev, trace)
+
+    fabs = []
+    try:
+        with deterministic(7):
+            fab = Fabric(SystemSetupConfig(
+                num_storage_nodes=FAB_NODES, num_chains=FAB_CHAINS,
+                chunk_size=MIB, ec_k=K, ec_m=M), device=dev)
+            fabs.append(fab)
+            fio = fab.file_client()
+
+            def write(name, path, body):
+                res = fab.meta.create(path, flags=OpenFlags.WRITE |
+                                      OpenFlags.CREATE, client_id="smoke")
+                request(name, lambda: fio.write(res.inode, 0, body))
+                return fab.meta.close(res.inode.id, res.session_id)
+
+            def read(name, inode, want):
+                got = request(name, lambda: fio.read(inode, 0, len(want)))
+                require(got == want, f"{name}: the bytes read differ")
+                rec["reads"].append((name, hashlib.sha256(got).hexdigest()))
+
+            # 1-3: write, read, one partial overwrite inside stripe 1 (the
+            # delta-parity read-modify-write)
+            body = bytearray(inputs["a"])
+            a = write("write", "/a", bytes(body))
+            read("read", a, bytes(body))
+            off, patch = inputs["patch"]
+            request("overwrite_5000B", lambda: fio.write(a, off, patch))
+            body[off:off + len(patch)] = patch
+            body = bytes(body)
+            # 4-7: fail the first node (4 shards of every stripe, m), read
+            # degraded, restart it on empty engines and rebuild, read
+            victim = sorted(fab.nodes)[0]
+            held = [t.engine for t in fab.nodes[victim].service.targets()]
+            lost = sum(e.used_size() for e in held)
+            lost_chunks = sum(len(e.all_metadata()) for e in held)
+            fab.fail_node(victim)
+            rec["failed"] = fabric_routing(fab)
+            read("degraded_read", a, body)
+            for t in fab.nodes[victim].service.targets():
+                t.engine = MemChunkEngine(device=dev)
+            fab.restart_node(victim)
+            moved = request("rebuild", lambda: fab.resync_all(rounds=6))
+            requests["rebuild"]["lost_bytes"] = lost
+            rec["moved"] = moved
+            read("read_after_rebuild", a, body)
+            # 8: the chain-encode hops on the services
+            with mock.patch.dict("os.environ",
+                                 {"TPU3FS_EC_CHAIN_ENCODE": "1"}):
+                b = write("chain_encode_write", "/b", inputs["b"])
+            read("chain_encoded_read", b, inputs["b"])
+            rec["lengths"] = [fab.meta.stat(p).length for p in ("/a", "/b")]
+            rec["routing"] = fabric_routing(fab)
+            rec["stored"] = fabric_stored(fab)
+            rec["encode_cpu_s"] = fio.storage.encode_cpu_s
+            # 9: the CR fabric at storage_bench's shape
+            cr_fab = Fabric(SystemSetupConfig(
+                num_storage_nodes=3, num_chains=4, num_replicas=2,
+                chunk_size=CR_FAB_CHUNK), device=dev)
+            fabs.append(cr_fab)
+            fab, fio = cr_fab, cr_fab.file_client()
+            c = write("cr_write", "/cr", inputs["cr"])
+            read("cr_read", c, inputs["cr"])
+            rec["cr_routing"] = fabric_routing(cr_fab)
+            rec["cr_stored"] = fabric_stored(cr_fab)
+        require(rec["moved"] == lost_chunks, f"the rebuild moved "
+                f"{rec['moved']} of the {lost_chunks} shards the node held")
+        return {"record": rec, "requests": requests, "fabric": fabs[0],
+                "files": {"/a": (a, body), "/b": (b, inputs["b"])},
+                "encode_cpu_s": rec.pop("encode_cpu_s")}
+    finally:
+        for f in fabs:
+            for node in f.nodes.values():
+                node.service.stop_workers()
+
+
+def check_fabric_gold(run: dict) -> int:
+    """All shards of the first GOLD_STRIPES stripes of each file against
+    ``RSCode.encode_np`` (trimmed as stored) and ``crc32c_py``, and every
+    CRC the engines hold against ``crc32c_many`` over its bytes. Returns
+    the number of chunks whose CRC was checked."""
+    from tpu3fs_torch.ops.crc32c import crc32c_many, crc32c_py
+    from tpu3fs_torch.ops.rs import RSCode
+    from tpu3fs_torch.ops.stripe import shard_size_of
+    from tpu3fs_torch.storage.types import ChunkId
+
+    fab = run["fabric"]
+    S = shard_size_of(MIB, K)
+    rs = RSCode(K, M, device="cpu")
+    routing = fab.routing()
+
+    def engine_of(target_id):
+        node = routing.node_of_target(target_id).node_id
+        return fab.nodes[node].service.target(target_id).engine
+
+    for path, (inode, body) in run["files"].items():
+        for idx in range(GOLD_STRIPES):
+            stripe = np.zeros((K, S), dtype=np.uint8)
+            chunk = np.frombuffer(body[idx * MIB:(idx + 1) * MIB], np.uint8)
+            stripe.reshape(-1)[:chunk.size] = chunk
+            shards = np.concatenate([stripe, rs.encode_np(stripe[None])[0]])
+            chain = routing.chains[inode.layout.chain_of_chunk(idx)]
+            for j in range(K + M):
+                eng = engine_of(chain.target_of_shard(j).target_id)
+                cid = ChunkId(inode.id, idx)
+                got = eng.read(cid)
+                require(got == shards[j, :len(got)].tobytes(),
+                        f"{path} stripe {idx} shard {j} differs from encode_np")
+                require(eng.get_meta(cid).checksum.value == crc32c_py(got),
+                        f"{path} stripe {idx} shard {j}: CRC vs crc32c_py")
+    held, bufs = [], []
+    for node in fab.nodes.values():
+        for target in node.service.targets():
+            for m in target.engine.all_metadata():
+                held.append(m.checksum.value)
+                bufs.append(target.engine.read(m.chunk_id))
+    require(crc32c_many(bufs, device=fab.device) == held,
+            "a CRC an engine holds differs from its bytes' CRC")
+    return len(held)
+
+
+def serving(dev):
+    """The serving stack answers files on the card (the main path), after a
+    full-size warm-up pass; then the same sequence at FAB_CPU_STRIPES
+    stripes on the card and on the CPU, whose records must be identical.
+    Returns the main run's launch counts and the run for
+    ``serving_shares``."""
+    t0 = phase("phase 11: the serving stack answers files")
+    serving_run(dev, FAB_STRIPES)  # warm-up: allocator, codecs, row codecs
+    zero_counts()
+    card = serving_run(dev, FAB_STRIPES)
+    counts = read_counts()
+    require_main_path("the serving stack", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    checked = check_fabric_gold(card)
+    small = serving_run(dev, FAB_CPU_STRIPES)
+    t_cpu = time.perf_counter()
+    cpu = serving_run(torch.device("cpu"), FAB_CPU_STRIPES)
+    card["cpu_route_s"] = time.perf_counter() - t_cpu
+    require(cpu["record"] == small["record"],
+            "the CPU run's replies, reads, stored chunks or routing differ "
+            "from the card's")
+    req = card["requests"]
+    mibps = {name: (req[name].get("lost_bytes", FAB_STRIPES * MIB) / MIB)
+             / (req[name]["host_ms"] / 1e3)
+             for name in ("write", "read", "degraded_read", "rebuild")}
+    card["mibps"] = mibps
+    log(f"serving: launches {counts} (K3 xor_reduce "
+        f"{counts['xor_reduce']}), {checked} CRCs checked, e2e MiB/s "
+        f"{mibps}, encode_cpu_s {card['encode_cpu_s']}, CPU route "
+        f"{card['cpu_route_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
+    return counts, card
+
+
+def serving_shares(dev, card: dict) -> None:
+    """The serving sequence again on the card, each request under
+    torch.profiler for its device time; logs every request's host time
+    from the main path's run beside the traced run's host and device
+    times. Runs after phase 13's traces, as ``storage_shares`` does."""
+    t0 = phase("phase 11 (continued): the serving requests' device time")
+    traced = serving_run(dev, FAB_STRIPES, trace=True)
+    require(traced["record"] == card["record"],
+            "the traced card run differs from the main path's run")
+    rows = {name: dict(row, traced=traced["requests"][name])
+            for name, row in card["requests"].items()}
+    log(json.dumps({"serving_requests": rows, "e2e_mibps": card["mibps"],
+                    "encode_cpu_s": card["encode_cpu_s"],
+                    "cpu_route_s": card["cpu_route_s"],
+                    "shapes": "RS(12,4) over 4 nodes and 2 chains, 1 MiB "
+                              "stripes (S=87,552), 48 a pass; CR 2 replicas, "
+                              "4 chains, 64 x 256 KiB"}))
+    log(f"serving shares ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 12 ----------------------------------------------------------------
 def incidence_of_lines(lines, nodes: int) -> np.ndarray:
     """The (chains, nodes) incidence that a command file lays: its
     create-target lines name each chain's member nodes (node ids 10 + i)."""
@@ -1505,7 +1799,7 @@ def placement(dev, cmp: Compare) -> dict:
                                              swap_state)
     from tpu3fs_torch.placement import PlacementProblem, check_solution
 
-    t0 = phase("phase 11: chain-table placement through entry.gen_chain_table")
+    t0 = phase("phase 12: chain-table placement through entry.gen_chain_table")
     racks = [f"rack{i * RACKS // PLACE_NODES}" for i in range(PLACE_NODES)]
     tables = {
         "cr": (CR_WIDTH, CR_TARGETS, dict(steps=PLACE_STEPS),
@@ -1728,7 +2022,7 @@ def placement(dev, cmp: Compare) -> dict:
     return total
 
 
-# -- phase 12 ----------------------------------------------------------------
+# -- phase 13 ----------------------------------------------------------------
 def mma_rates(dev) -> dict:
     """Issue rate of the two mma forms on register operands, every SM busy
     (csrc/mma_rate.cu): the card's data sheet has no 1-bit rate."""
@@ -1997,7 +2291,7 @@ def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.stripe import StripeCodec
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
 
-    phase("phase 12: times (CUDA events, after warm-up)")
+    phase("phase 13: times (CUDA events, after warm-up)")
     rs = RSCode(K, M, device=dev)
     B, S = B_WRITE, S_WRITE
     data = rand_u8((B, K, S), 11, dev)
@@ -2234,9 +2528,11 @@ def main() -> int:
     paths["hops"] = hops(dev, Compare())
     paths["multi_device"] = multi_device(dev)
     paths["storage"], inputs, card = storage(dev)
+    paths["serving"], served = serving(dev)
     paths["placement"] = placement(dev, Compare())
     kernels = times(dev, paths, cmps)
     storage_shares(dev, inputs, card)
+    serving_shares(dev, served)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,6 @@ running every case (tests/torch_parallel_ranks.py) and saving its local
 outputs; the tests assemble them into the JAX global layout and require
 equal bytes. Tolerance 0."""
 
-import multiprocessing
-import time
-
 import jax
 import numpy as np
 import pytest
@@ -27,39 +24,14 @@ from tpu3fs_torch.entry import dryrun_chain_len
 from tpu3fs_torch.ops.xor_fold import xor_fold_crc
 from tpu3fs_torch.parallel import backend_for
 
-SPAWN_TIMEOUT_S = 60
-
-
-def _spawn(world: int, root) -> list:
-    """Run ``world`` gloo ranks; return each rank's saved outputs. A rank
-    that fails, or a spawn that outlives SPAWN_TIMEOUT_S, fails the test."""
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=ranks.run, args=(r, world, str(root)))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(5)
-    errors = "".join(f.read_text() for f in sorted(root.glob("rank*.err")))
-    assert not hung, f"ranks {hung} still running after {SPAWN_TIMEOUT_S} s"
-    assert [p.exitcode for p in procs] == [0] * world, errors
-    return [dict(np.load(root / f"rank{r}.npz")) for r in range(world)]
-
-
 @pytest.fixture(scope="module")
 def ranks8(tmp_path_factory):
-    return _spawn(8, tmp_path_factory.mktemp("gloo8"))
+    return ranks.spawn(8, tmp_path_factory.mktemp("gloo8"))
 
 
 @pytest.fixture(scope="module")
 def ranks6(tmp_path_factory):
-    return _spawn(6, tmp_path_factory.mktemp("gloo6"))
+    return ranks.spawn(6, tmp_path_factory.mktemp("gloo6"))
 
 
 def _jax_mesh(n: int, chain_len: int) -> Mesh:

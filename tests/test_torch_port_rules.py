@@ -35,7 +35,10 @@ def test_port_imports_neither_jax_nor_tpu3fs(path):
 
 def test_import_touches_no_cuda_and_no_triton():
     code = ("import sys, torch, tpu3fs_torch, tpu3fs_torch.entry, "
-            "tpu3fs_torch.convert, tpu3fs_torch.kernels; "
+            "tpu3fs_torch.convert, tpu3fs_torch.kernels, tpu3fs_torch.kv, "
+            "tpu3fs_torch.rpc.serde, tpu3fs_torch.rpc.health, "
+            "tpu3fs_torch.meta, tpu3fs_torch.mgmtd, tpu3fs_torch.qos, "
+            "tpu3fs_torch.client, tpu3fs_torch.fabric; "
             "print(torch.cuda.is_initialized(), 'triton' in sys.modules, "
             "tpu3fs_torch.kernels.library.cache_info().currsize)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -1,4 +1,4 @@
-"""Rank bodies for tests/test_torch_parallel.py.
+"""Rank bodies for tests/test_torch_parallel.py and tests/test_torch_entry.py.
 
 Each spawned process is one gloo rank on the CPU. It runs every case of its
 world size through ``tpu3fs_torch.parallel`` with the same seeded numpy
@@ -9,6 +9,8 @@ This module imports neither jax nor tpu3fs, so a rank starts quickly.
 
 from __future__ import annotations
 
+import multiprocessing
+import time
 import traceback
 from datetime import timedelta
 from pathlib import Path
@@ -143,7 +145,32 @@ def cases_6(rank: int) -> dict:
     return out
 
 
-CASES = {8: cases_8, 6: cases_6}
+def cases_4(rank: int) -> dict:
+    """The dry run on a (2, 2) mesh, with what its step 4 (the fabric EC
+    round trip on this rank's CPU) wrote, rebuilt and read."""
+    from tpu3fs_torch import entry
+
+    seen = []
+    trip = entry.fabric_round_trip
+
+    def recorded(*args):
+        seen.append(trip(*args))
+        return seen[-1]
+
+    entry.fabric_round_trip = recorded
+    try:
+        out = {"dryrun": np.array(dryrun_multichip(
+            make_storage_mesh(dryrun_chain_len(4), device=CPU)))}
+    finally:
+        entry.fabric_round_trip = trip
+    (step4,) = seen
+    for key in ("payload", "shard", "rebuilt", "read"):
+        out[f"step4_{key}"] = np.frombuffer(step4[key], np.uint8)
+    out["step4_moved"] = np.array(step4["moved"])
+    return out
+
+
+CASES = {8: cases_8, 6: cases_6, 4: cases_4}
 
 
 def run(rank: int, world: int, root: str) -> None:
@@ -161,3 +188,28 @@ def run(rank: int, world: int, root: str) -> None:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+SPAWN_TIMEOUT_S = 60
+
+
+def spawn(world: int, root) -> list:
+    """Run ``world`` gloo ranks; return each rank's saved outputs. A rank
+    that fails, or a spawn that outlives SPAWN_TIMEOUT_S, fails the test."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=run, args=(r, world, str(root)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+    errors = "".join(f.read_text() for f in sorted(root.glob("rank*.err")))
+    assert not hung, f"ranks {hung} still running after {SPAWN_TIMEOUT_S} s"
+    assert [p.exitcode for p in procs] == [0] * world, errors
+    return [dict(np.load(root / f"rank{r}.npz")) for r in range(world)]

@@ -3,9 +3,10 @@
 ``codec_from_arrays`` builds the port's codec from the arrays a JAX
 ``RSCode``/``BatchCrc32c`` holds, so the two can be shown to compute the same
 function from the same state. ``engine_from_chunks`` loads a plain dump of
-a storage target's committed chunks into the port's ``MemChunkEngine``.
-The caller reads the arrays and the dump; this module never imports
-``tpu3fs``.
+a storage target's committed chunks into the port's ``MemChunkEngine``,
+and ``fabric_from_dump`` a plain dump of a whole in-process cluster (its
+KV store and every target's chunks) into the port's ``Fabric``. The caller
+reads the arrays and the dumps; this module never imports ``tpu3fs``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, Iterable, Mapping
 
 import numpy as np
 
+from tpu3fs_torch.kv import with_transaction
 from tpu3fs_torch.ops.crc32c import BatchCrc32c
 from tpu3fs_torch.ops.rs import RSCode
 from tpu3fs_torch.ops.stripe import StripeCodec
@@ -65,3 +67,47 @@ def engine_from_chunks(chunks: Iterable[Mapping], device=None) -> MemChunkEngine
             raise ValueError(f"chunk {cid}: crc {c['crc']:#010x} does not "
                              "match its bytes") from e
     return engine
+
+
+def fabric_from_dump(dump: Mapping, cfg=None, device=None):
+    """A port ``Fabric(cfg, device)`` holding a dumped fabric's state.
+
+    ``dump`` gives ``kv``, every (key, value) pair of the KV store as bytes
+    (mgmtd's routing records and meta's inodes and directory entries,
+    which both packages' serde encodes alike); ``clock``, the fabric
+    clock's reading; and ``targets``, target id -> that target's chunks in
+    ``engine_from_chunks``'s form. ``cfg`` must be the dumped fabric's
+    ``SystemSetupConfig``, so the booted fabric has the same nodes,
+    targets and chains; every node is taken to be up. The booted records
+    are replaced by the dumped ones, mgmtd reloads its routing from them,
+    and each target gets an engine loaded (and every CRC checked) on the
+    fabric's device."""
+    from tpu3fs_torch.fabric import Fabric
+
+    fab = Fabric(cfg, device=device)
+    booted = fab.kv.dump_at(fab.kv.version)
+
+    def load(txn) -> None:
+        for key, _ in booted:
+            txn.clear(key)
+        for key, value in dump["kv"]:
+            txn.set(bytes(key), bytes(value))
+
+    with_transaction(fab.kv, load)
+    fab.clock.t = float(dump["clock"])
+    fab.mgmtd._load()
+    routing = fab.routing()
+    targets: Dict[int, object] = {
+        t.target_id: t for node in fab.nodes.values()
+        for t in node.service.targets()}
+    unknown = set(map(int, dump["targets"])) - set(targets)
+    if unknown or set(routing.targets) != set(targets):
+        raise ValueError("the dump's targets are not the ones cfg lays out: "
+                         f"unknown {sorted(unknown)}")
+    for tid, target in targets.items():
+        target.engine = engine_from_chunks(dump["targets"].get(tid, ()),
+                                           device=fab.device)
+    for nid, node in fab.nodes.items():
+        node.hb_version = routing.nodes[nid].heartbeat_version
+    fab.heartbeat_all()
+    return fab

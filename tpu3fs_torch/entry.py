@@ -1,6 +1,6 @@
 """The flagship data-plane step on one device, RS(12,4) parity encode plus
-batched CRC32C over all k+m shards, the multi-device dry run, and the
-chain-table generator.
+batched CRC32C over all k+m shards, the multi-device dry run (with its
+fabric EC round trip), and the chain-table generator.
 
 Counterpart of ``__graft_entry__.entry()``, ``dryrun_multichip`` and the
 admin CLI's ``solve-placement`` (``tpu3fs/cli.py:cmd_solve_placement``).
@@ -66,13 +66,58 @@ def dryrun_chain_len(n_ranks: int) -> int:
     return 1
 
 
+def fabric_round_trip(chain_len: int, rng: np.random.Generator,
+                      device) -> dict:
+    """Step 4 of ``__graft_entry__.dryrun_multichip``: the EC serving path
+    end to end through the port's fabric on ``device``, with the same
+    shapes and asserts. RS(chain_len - 1, 1) over ``chain_len`` storage
+    nodes: ``write_stripe`` of one 4 KiB chunk (K1 encode, K2 CRCs), the
+    node holding shard 1 fails and comes back with an empty engine,
+    ``resync_all`` rebuilds the shard (the fabric's EC rebuild worker: a K1
+    or K3 decode), and ``read_stripe`` returns the chunk. The rebuild runs
+    without a mesh: the mesh rebuild over one process per card is not
+    ported (ROADMAP M7). Returns the payload, the shard before the failure
+    and after the rebuild, the bytes read and the shards moved."""
+    from tpu3fs_torch.fabric import Fabric, SystemSetupConfig
+    from tpu3fs_torch.storage.engine import MemChunkEngine
+    from tpu3fs_torch.storage.types import ChunkId
+
+    k, m = chain_len - 1, 1
+    chunk = 4096
+    fab = Fabric(SystemSetupConfig(
+        num_storage_nodes=chain_len, num_chains=1, chunk_size=chunk,
+        ec_k=k, ec_m=m), device=device)
+    client = fab.storage_client()
+    payload = rng.integers(0, 256, chunk, dtype=np.uint8).tobytes()
+    chain_id = fab.chain_ids[0]
+    cid = ChunkId(1, 0)
+    _require(client.write_stripe(chain_id, cid, payload, chunk_size=chunk).ok,
+             "EC stripe write failed")
+    routing = fab.routing()
+    victim_t = routing.chains[chain_id].target_of_shard(1 % (k + m))
+    victim = routing.node_of_target(victim_t.target_id).node_id
+    target = fab.nodes[victim].service.target(victim_t.target_id)
+    original = target.engine.read(cid)
+    fab.fail_node(victim)
+    target.engine = MemChunkEngine(device=fab.device)
+    fab.restart_node(victim)
+    moved = fab.resync_all()
+    _require(moved >= 1, "EC rebuild moved nothing")
+    rebuilt = target.engine.read(cid)
+    _require(rebuilt == original, "EC rebuilt shard mismatch")
+    got = client.read_stripe(chain_id, cid, 0, chunk, chunk_size=chunk)
+    _require(got.ok and got.data == payload, "EC read-after-rebuild mismatch")
+    return {"payload": payload, "shard": original, "rebuilt": rebuilt,
+            "read": got.data, "moved": moved}
+
+
 def dryrun_multichip(mesh) -> tuple:
-    """Steps 1-3 of ``__graft_entry__.dryrun_multichip`` on this rank of a
-    (dp, chain) mesh from ``make_storage_mesh(dryrun_chain_len(world))``,
-    with the same seeded data and asserts: the chain write, the EC rebuild
-    with the batch sharded over dp (when chain > 1), the shuffle over dp
-    (when dp > 1). Returns (dp, chain). Step 4, the fabric EC round trip,
-    waits for the port of the serving stack (ROADMAP M6)."""
+    """``__graft_entry__.dryrun_multichip`` on this rank of a (dp, chain)
+    mesh from ``make_storage_mesh(dryrun_chain_len(world))``, with the same
+    seeded data and asserts: the chain write, the EC rebuild with the batch
+    sharded over dp (when chain > 1), the shuffle over dp (when dp > 1) and
+    the fabric EC round trip on this rank's device (``fabric_round_trip``,
+    when chain > 1). Returns (dp, chain)."""
     _, dp_i, dp = mesh_axis(mesh, "dp")
     _, c_i, chain_len = mesh_axis(mesh, "chain")
     dev = torch.device(mesh.device_type)
@@ -115,6 +160,10 @@ def dryrun_multichip(mesh) -> tuple:
         out = shuffle_partitions(mesh, local(part, dp, dp_i))
         want = torch.from_numpy(part[dp_i::dp].copy()).to(dev)
         _require(torch.equal(out, want), "shuffle mismatch")
+
+    # 4) the EC serving path end to end through the fabric
+    if chain_len >= 2:
+        fabric_round_trip(chain_len, rng, dev)
     return dp, chain_len
 
 

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -137,6 +138,18 @@ def launch(entry: str, device, *args) -> None:
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         rc = getattr(library(), entry)(*ptrs, stream)
     check(rc, entry)
+
+
+_count_lock = threading.Lock()
+
+
+def count(fn, attr: str = "launches") -> None:
+    """Add one to the counter ``fn.<attr>`` (a wrapper's launches or a
+    plain version's calls) under one lock: the storage services' forward
+    helpers and update workers and the client's hedged reads reach one
+    codec from several threads, and ``+=`` on an attribute is not atomic."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def check(rc: int, name: str) -> None:

@@ -233,7 +233,7 @@ def crc32c_blocks(chunks: torch.Tensor, ks_cols: torch.Tensor,
     if rows:
         kernels.launch("tpu3fs_crc32c_mma", chunks.device, chunks, frags,
                        ks_cols, out, rows, size, block)
-        crc32c_blocks.launches += 1
+        kernels.count(crc32c_blocks)
     return out.view(torch.uint32)
 
 
@@ -249,7 +249,7 @@ def crc32c_blocks_table(chunks: torch.Tensor, ks_cols: torch.Tensor,
     if rows:
         kernels.launch("tpu3fs_crc32c_blocks", chunks.device, chunks, ks_cols,
                        out, rows, size, block)
-        crc32c_blocks_table.launches += 1
+        kernels.count(crc32c_blocks_table)
     return out.view(torch.uint32)
 
 
@@ -307,7 +307,7 @@ class BatchCrc32c:
         Exact: the first sum is at most 8 * block, the second 32 * N, both
         far below 2**24. Chunked along rows so the float expansion stays
         bounded. ``BatchCrc32c.compute.calls`` counts its calls."""
-        BatchCrc32c.compute.calls += 1
+        kernels.count(BatchCrc32c.compute, "calls")
         batch = chunks.shape[0]
         regs_out = torch.empty((batch,), dtype=torch.int64, device=chunks.device)
         step = max(1, _PLAIN_CHUNK_BYTES // (self.size * 8 * 4))

@@ -50,7 +50,7 @@ def gf2_matmul_plain(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     the bit matrix, mod 2, pack. Exact: each sum is at most 8k <= 2048.
     Chunked along S so the 32x float expansion stays bounded.
     ``gf2_matmul_plain.calls`` counts its calls."""
-    gf2_matmul_plain.calls += 1
+    kernels.count(gf2_matmul_plain, "calls")
     o, k, _ = cols.shape
     *lead, kk, S = data.shape
     x = data.reshape(math.prod(lead), k, S)
@@ -116,7 +116,8 @@ def gf2_matmul(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     if not tensor_core_takes(data.shape[-1], data.data_ptr()):
         return gf2_matmul_bitslice(cols, data)
     out, launched = _launch("tpu3fs_gf2_mma", cols, data)
-    gf2_matmul.launches += launched
+    if launched:
+        kernels.count(gf2_matmul)
     return out
 
 
@@ -127,7 +128,8 @@ def gf2_matmul_bitslice(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """The bit-sliced integer kernel on a CUDA tensor, any S and alignment.
     ``gf2_matmul_bitslice.launches`` counts its launches."""
     out, launched = _launch("tpu3fs_gf2_matmul", cols, data)
-    gf2_matmul_bitslice.launches += launched
+    if launched:
+        kernels.count(gf2_matmul_bitslice)
     return out
 
 

@@ -70,7 +70,7 @@ def score_batch_plain(Ms: torch.Tensor,
     is integer arithmetic, wrapped to int32 as XLA's. ``.calls`` counts
     its calls."""
     _check(Ms, domain_of_node)
-    score_batch_plain.calls += 1
+    kernels.count(score_batch_plain, "calls")
     P, b, v = Ms.shape
     if b >= _F32_EXACT:
         raise ValueError(f"b = {b} groups: float32 sums are exact below 2**24")
@@ -122,7 +122,7 @@ def score_batch(Ms: torch.Tensor,
     out = torch.empty((3, P), dtype=torch.int32, device=x.device)
     kernels.launch("tpu3fs_placement_score", x.device, x, domain_of_node,
                    out, P, b, v, D, int(cap))
-    score_batch.launches += 1
+    kernels.count(score_batch)
     return out[0], out[1], out[2]
 
 

@@ -15,6 +15,7 @@ set" is the concatenation (..., k+m, S). S is the shard size in bytes.
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -84,7 +85,10 @@ class RSCode:
             [np.eye(self.k, dtype=np.uint8), parity_matrix], axis=0)
         self._parity_bits = parity_bits
         self._parity_cols = prepare_matrix(parity_bits, self.device)
-        # per-instance caches keyed on (present, lost), and on j
+        # per-instance caches keyed on (present, lost), and on j, filled
+        # under one lock: the services' forward helpers, update workers and
+        # the client's hedged reads share a codec across threads
+        self._cache_lock = threading.RLock()
         self._reconstruct_mats: dict = {}
         self._reconstruct_fns: dict = {}
         self._delta_cols: dict = {}
@@ -112,15 +116,17 @@ class RSCode:
 
     def _delta_col(self, j: int):
         """(column, its (m, 1, 8) K1 operand on the device), cached per j."""
-        cached = self._delta_cols.get(j)
-        if cached is None:
-            if not 0 <= j < self.k:
-                raise ValueError(f"data shard index {j} out of range")
-            col = np.ascontiguousarray(self.parity_matrix[:, j:j + 1],
-                                       dtype=np.uint8)
-            cached = (col, prepare_matrix(GF.expand_to_bits(col), self.device))
-            self._delta_cols[j] = cached
-        return cached
+        with self._cache_lock:
+            cached = self._delta_cols.get(j)
+            if cached is None:
+                if not 0 <= j < self.k:
+                    raise ValueError(f"data shard index {j} out of range")
+                col = np.ascontiguousarray(self.parity_matrix[:, j:j + 1],
+                                           dtype=np.uint8)
+                cached = (col, prepare_matrix(GF.expand_to_bits(col),
+                                              self.device))
+                self._delta_cols[j] = cached
+            return cached
 
     def delta_parity(self, j: int, delta) -> torch.Tensor:
         """Parity delta of a change on data shard j: (..., S) uint8 delta
@@ -153,18 +159,19 @@ class RSCode:
     ) -> np.ndarray:
         """GF matrix R (len(lost), k) with lost = R @ shards[present]."""
         key = (present, lost)
-        cached = self._reconstruct_mats.get(key)
-        if cached is not None:
-            return cached
-        if len(present) != self.k:
-            raise ValueError(f"{len(present)} survivors given, k={self.k}")
-        sub = self.generator[list(present), :]  # (k, k)
-        inv = GF.mat_inv(sub)  # data = inv @ present
-        rows = [GF.matmul(self.generator[idx : idx + 1, :], inv)[0]
-                for idx in lost]
-        R = np.stack(rows, axis=0)
-        self._reconstruct_mats[key] = R
-        return R
+        with self._cache_lock:
+            cached = self._reconstruct_mats.get(key)
+            if cached is not None:
+                return cached
+            if len(present) != self.k:
+                raise ValueError(f"{len(present)} survivors given, k={self.k}")
+            sub = self.generator[list(present), :]  # (k, k)
+            inv = GF.mat_inv(sub)  # data = inv @ present
+            rows = [GF.matmul(self.generator[idx : idx + 1, :], inv)[0]
+                    for idx in lost]
+            R = np.stack(rows, axis=0)
+            self._reconstruct_mats[key] = R
+            return R
 
     def reconstruct_fn(self, present_idx: Sequence[int],
                        lost_idx: Sequence[int]):
@@ -173,20 +180,21 @@ class RSCode:
         present = tuple(int(i) for i in present_idx)
         lost = tuple(int(i) for i in lost_idx)
         key = (present, lost)
-        fn = self._reconstruct_fns.get(key)
-        if fn is None:
-            if self._xor_rebuild_applies(present, lost):
-                # single loss covered by the all-ones parity row: the lost
-                # shard is the plain XOR of the k survivors
-                fn = xor_reduce
-            else:
-                R = self._reconstruct_matrix(present, lost)
-                cols = prepare_matrix(GF.expand_to_bits(R), self.device)
+        with self._cache_lock:
+            fn = self._reconstruct_fns.get(key)
+            if fn is None:
+                if self._xor_rebuild_applies(present, lost):
+                    # single loss covered by the all-ones parity row: the
+                    # lost shard is the plain XOR of the k survivors
+                    fn = xor_reduce
+                else:
+                    R = self._reconstruct_matrix(present, lost)
+                    cols = prepare_matrix(GF.expand_to_bits(R), self.device)
 
-                def fn(data, _cols=cols):
-                    return gf2_matmul(_cols, data.contiguous())
-            self._reconstruct_fns[key] = fn
-        return fn
+                    def fn(data, _cols=cols):
+                        return gf2_matmul(_cols, data.contiguous())
+                self._reconstruct_fns[key] = fn
+            return fn
 
     def _xor_rebuild_applies(self, present, lost) -> bool:
         """True when lost is one shard rebuildable from parity row 0: the

@@ -159,7 +159,7 @@ def swap_score_plain(state: SwapState, moves: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version, gathers and index arithmetic in int64.
     ``swap_score_plain.calls`` counts its calls."""
     _check(state, moves)
-    swap_score_plain.calls += 1
+    kernels.count(swap_score_plain, "calls")
     g1, g2, a, c, valid = moves.long()
     d, ga, gc = _row_changes(state, g1, g2, a, c)
     over0, mx, ssq0 = state.score
@@ -204,7 +204,7 @@ def swap_score(state: SwapState, moves: torch.Tensor) -> torch.Tensor:
     kernels.launch("tpu3fs_swap_score", state.device, state.M, state.G,
                    state.hist, state.counts, state.dom, state.score, moves,
                    out, P, v, D, state.cap)
-    swap_score.launches += 1
+    kernels.count(swap_score)
     return out
 
 
@@ -215,7 +215,7 @@ def swap_apply_plain(state: SwapState, moves: torch.Tensor, p: int) -> None:
     """Plain PyTorch version of ``swap_apply``, in place.
     ``swap_apply_plain.calls`` counts its calls."""
     _check(state, moves)
-    swap_apply_plain.calls += 1
+    kernels.count(swap_apply_plain, "calls")
     g1, g2, a, c, valid = (int(x) for x in moves[:, p].tolist())
     M, G, hist = state.M, state.G, state.hist
     if not valid or [int(M[g1, a]), int(M[g2, a]), int(M[g1, c]),
@@ -270,7 +270,7 @@ def swap_apply(state: SwapState, moves: torch.Tensor, p: int) -> None:
     kernels.launch("tpu3fs_swap_apply", state.device, state.M, state.G,
                    state.hist, state.counts, state.dom, state.score,
                    moves.contiguous(), P, int(p), v, D, state.cap)
-    swap_apply.launches += 1
+    kernels.count(swap_apply)
 
 
 swap_apply.launches = 0

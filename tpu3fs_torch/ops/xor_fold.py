@@ -123,7 +123,7 @@ def xor_fold_crc_plain(chunks: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: a halving tree of in-place int32 XORs (torch
     has no uint32 arithmetic). ``xor_fold_crc_plain.calls`` counts its
     calls."""
-    xor_fold_crc_plain.calls += 1
+    kernels.count(xor_fold_crc_plain, "calls")
     batch, size = chunks.shape
     if size == 0:  # an empty row folds to 0 (and cannot be viewed as words)
         return torch.zeros(batch, dtype=torch.int32,
@@ -171,7 +171,7 @@ def xor_fold_crc(chunks: torch.Tensor) -> torch.Tensor:
     kernels.launch("tpu3fs_xor_fold", x.device, x, out, ws, batch, size,
                    ROUTES[plan.route], plan.grid, plan.cluster,
                    plan.rows_per_cta)
-    xor_fold_crc.launches += 1
+    kernels.count(xor_fold_crc)
     return out.view(torch.uint32)
 
 
@@ -191,7 +191,7 @@ def xor_fold_crc_atomic(chunks: torch.Tensor) -> torch.Tensor:
     if batch:
         kernels.launch("tpu3fs_xor_fold_atomic", x.device, x, out, batch,
                        size)
-        xor_fold_crc_atomic.launches += 1
+        kernels.count(xor_fold_crc_atomic)
     return out.view(torch.uint32)
 
 

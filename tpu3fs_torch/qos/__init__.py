@@ -1,6 +1,6 @@
-"""QoS: the traffic classes, admission and weighted-fair scheduling
-(``core``, ``scheduler``): the port's own copies of those modules of
-``tpu3fs/qos/``. ``QosManager`` (``manager.py``) is not ported."""
+"""QoS: the traffic classes, admission, weighted-fair scheduling and the
+per-service bundle of them (``core``, ``scheduler``, ``manager``): the
+port's own copies of ``tpu3fs/qos/``."""
 
 from tpu3fs_torch.qos.core import (
     BACKGROUND_CLASSES,
@@ -19,6 +19,7 @@ from tpu3fs_torch.qos.core import (
     retry_after_ms_of,
     tagged,
 )
+from tpu3fs_torch.qos.manager import QosManager
 from tpu3fs_torch.qos.scheduler import WeightedFairQueue, WfqPolicy
 
 __all__ = [
@@ -26,6 +27,7 @@ __all__ = [
     "BACKGROUND_CLASSES",
     "ConcurrencyGate",
     "QosConfig",
+    "QosManager",
     "SHARE_BOUNDED_CLASSES",
     "TokenBucket",
     "TrafficClass",

@@ -1,3 +1,4 @@
-"""Request deadlines (``deadline``): the port's own copy of
-``tpu3fs/rpc/deadline.py``. The RPC transport and ``serde`` are not
-ported."""
+"""Request deadlines, peer health and the record codec (``deadline``,
+``health``, ``serde``): the port's own copies of those modules of
+``tpu3fs/rpc/``. The RPC transport (``net``, ``services``) is not ported
+(ROADMAP M6a)."""
