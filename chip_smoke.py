@@ -62,7 +62,7 @@ Phases, in order (any failure exits non-zero):
      re-joins and ResyncWorker brings it back, serving the same bytes.
      Steps 1-6 run on the card (the main path; K1 and K2 must launch and no
      plain version run), on the CPU with the plain versions and, after
-     phase 13's traces, again on the card under torch.profiler (each
+     phase 14's traces, again on the card under torch.profiler (each
      request's device time): all three must give the same replies, bytes,
      versions and checksums;
  11. the serving stack answering files through Fabric.meta and
@@ -83,7 +83,7 @@ Phases, in order (any failure exits non-zero):
      same sequence at 4 stripes (and 4 CR chunks) on the card and on the
      CPU must give identical records (reads, stored chunks with versions
      and CRCs, routing versions and target states, file lengths); after
-     phase 13 it runs again under torch.profiler for each request's device
+     phase 14 it runs again under torch.profiler for each request's device
      share;
  12. chain-table placement through entry.gen_chain_table: the 180-node CR
      table (width 3, 96 targets per node: b = 5760 chains, 128 proposals a
@@ -109,7 +109,8 @@ tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
 the swap scorer; the full-Gram score_batch is its check).
 ``python3 chip_smoke.py --fold-variants`` instead builds the kernels and
-times K4's launch plan varied (fold_variants).
+times K4's launch plan varied (fold_variants); ``--kvcache`` builds them
+and runs phase 12 alone, with its traced run.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -125,6 +126,7 @@ import sys
 import time
 from datetime import timedelta
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1171,12 +1173,13 @@ def storage_inputs() -> dict:
 def timed_request(requests: dict, name: str, fn, dev, trace: bool):
     """Run one request ``fn()`` on ``dev`` and record in ``requests[name]``
     its host time (ending in a synchronise), the kernel launches it made
-    and, with ``trace``, its device time from a torch.profiler trace."""
+    and, with ``trace``, its device time from a torch.profiler trace of
+    the device's activity."""
     from torch.profiler import ProfilerActivity, profile
 
     before = read_counts()
-    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-          if trace else contextlib.nullcontext()) as prof:
+    with (profile(activities=[ProfilerActivity.CUDA]) if trace
+          else contextlib.nullcontext()) as prof:
         t = time.perf_counter()
         out = fn()
         if dev.type == "cuda":
@@ -1387,18 +1390,21 @@ def storage_run(dev, inputs: dict, trace: bool = False) -> dict:
 
 
 def device_split(prof) -> dict:
-    """Device time in a torch.profiler trace: kernels, copies, memsets (ms)."""
+    """Device time in a torch.profiler trace: kernels, copies, memsets (ms),
+    summed over the device's own events. (An operator's self device time
+    in ``key_averages()`` repeats the copies and kernels it launched, and
+    the profiler builds those summaries slowly for a request of tens of
+    thousands of launches, so the raw events are read instead.)"""
+    from torch.autograd import DeviceType
+
     split = {"kernel_ms": 0.0, "copy_ms": 0.0, "memset_ms": 0.0}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if not us:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        key = e.key.lower()
+        key = e.name().lower()
         kind = ("copy_ms" if "memcpy" in key else
                 "memset_ms" if "memset" in key else "kernel_ms")
-        split[kind] += us / 1e3
+        split[kind] += (e.end_ns() - e.start_ns()) / 1e6
     split["device_ms"] = sum(split.values())
     return split
 
@@ -1453,7 +1459,7 @@ def storage_shares(dev, inputs: dict, card: dict) -> None:
     """Steps 1-6 again on the card, each request under torch.profiler for
     its device time (kernels, copies); logs every request's host time from
     the main path's run beside the traced run's host and device times.
-    Runs after phase 13's traces, which its profiler sessions must not
+    Runs after phase 14's traces, which its profiler sessions must not
     precede."""
     t0 = phase("phase 10 (continued): the storage requests' device time")
     traced = storage_run(dev, inputs, trace=True)
@@ -1478,17 +1484,43 @@ CR_FAB_CHUNK, CR_FAB_CHUNKS = 256 << 10, 64
 GOLD_STRIPES = 4  # stripes of each pass held against encode_np, crc32c_py
 
 
+class StepClock:
+    """``time`` for the modules a run patches: ``time_ns`` counts from a
+    fixed start; ``time`` is the real clock, or with ``step`` a wall clock
+    that moves only when the run calls ``advance``; every other attribute
+    is the real module's."""
+
+    def __init__(self, step: bool = False, t: float = 1_800_000_000.0):
+        self.step, self.t = step, t
+        self._ns = itertools.count(1_700_000_000_000_000_000, 1_000_003)
+
+    def time(self) -> float:
+        return self.t if self.step else time.time()
+
+    def time_ns(self) -> int:
+        return next(self._ns)
+
+    def advance(self, dt: float = 10.0) -> None:
+        self.t += dt
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 @contextlib.contextmanager
-def deterministic(seed: int):
+def deterministic(seed: int, step_clock: bool = False):
     """EC stripe versions carry a writer nonce from ``os.urandom`` and a
     file's layout seed comes from meta's ``time.time_ns``: both drawn from
     ``seed`` for one run, so two runs of the sequence store the same
     versions on the same chains. Each draw size has its own stream (a
-    nonce is 4 bytes), so other callers (uuid4's 16) cannot shift it."""
-    from types import SimpleNamespace
+    nonce is 4 bytes), so other callers (uuid4's 16) cannot shift it.
+    With ``step_clock`` the wall clock that stamps inode times, pin leases
+    and the KV cache's touches is a StepClock too (yielded), so mtimes,
+    and the GC's order by them, are the same on every run."""
     from unittest import mock
 
-    from tpu3fs_torch.meta import store
+    from tpu3fs_torch.kvcache import cache, layout, leases
+    from tpu3fs_torch.meta import store, types
 
     streams = {}
 
@@ -1496,11 +1528,13 @@ def deterministic(seed: int):
         rng = streams.setdefault(n, np.random.default_rng([seed, n]))
         return rng.bytes(n)
 
-    ns = itertools.count(1_700_000_000_000_000_000, 1_000_003)
-    clock = SimpleNamespace(time=time.time, time_ns=lambda: next(ns))
-    with mock.patch("os.urandom", urandom), \
-            mock.patch.object(store, "time", clock):
-        yield
+    clock = StepClock(step_clock)
+    mods = [store] + ([types, cache, leases, layout] if step_clock else [])
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch("os.urandom", urandom))
+        for mod in mods:
+            stack.enter_context(mock.patch.object(mod, "time", clock))
+        yield clock
 
 
 def serving_inputs(depth: int) -> dict:
@@ -1718,7 +1752,7 @@ def serving_shares(dev, card: dict) -> None:
     """The serving sequence again on the card, each request under
     torch.profiler for its device time; logs every request's host time
     from the main path's run beside the traced run's host and device
-    times. Runs after phase 13's traces, as ``storage_shares`` does."""
+    times. Runs after phase 14's traces, as ``storage_shares`` does."""
     t0 = phase("phase 11 (continued): the serving requests' device time")
     traced = serving_run(dev, FAB_STRIPES, trace=True)
     require(traced["record"] == card["record"],
@@ -1735,6 +1769,368 @@ def serving_shares(dev, card: dict) -> None:
 
 
 # -- phase 12 ----------------------------------------------------------------
+# one 16-token block of Llama-3.1-8B's KV cache in float16 (its public
+# config.json: 32 layers, 8 KV heads, head_dim 128): (layers, k/v, heads,
+# tokens, head_dim), 2,097,152 B a page, 2,097,208 with its header. Session
+# A is a 4,096-token prompt (256 blocks); B shares A's first 3,072 tokens
+# (192 blocks) and adds 1,024 of its own (64), as the JAX package's kvcache
+# benchmark shapes it (benchmarks/kvcache_bench.py:184-195). The fabric is
+# phase 11's RS(12,4) one. The card-versus-CPU record runs 8 blocks of A,
+# 6 of them shared, at full page width.
+KV_PAGE = (32, 2, 8, 16, 128)
+KV_BLOCK_TOKENS = KV_PAGE[3]
+KV_FULL, KV_SMALL = (256, 192, 64), (8, 6, 2)   # A, shared, B's own
+KV_TTL_S = 3600.0
+KV_BUDGET = 512 * MIB        # the capacity pass's target: A's page bytes
+
+
+def kv_pages(dev) -> tuple:
+    """A's 256 pages and B's 64 own pages, float16 integers in [-3, 3)
+    drawn on the card from one seed: (host numpy pages, card tensors)."""
+    g = torch.Generator(device=dev).manual_seed(1000)
+    n_a, _, n_own = KV_FULL
+    t = torch.randint(-3, 3, (n_a + n_own, *KV_PAGE), generator=g,
+                      device=dev, dtype=torch.int8).to(torch.float16)
+    host = t.cpu().numpy()
+    return [host[i] for i in range(len(host))], t
+
+
+class LoopbackPeers:
+    """The peer client's surface (peer_read, fill_claim, fill_release),
+    dispatching straight into the other members' ServingHosts: the fleet
+    ladder with no transport and no deadline."""
+
+    def __init__(self):
+        self.hosts = {}
+
+    def peer_read(self, ep, keys, *, serve_through=True, est_bytes=0,
+                  deadline_s=None):
+        from tpu3fs_torch.serving.service import PeerReadReq
+
+        return self.hosts[ep.node_id].peer_read(
+            PeerReadReq(keys=list(keys), serve_through=serve_through))
+
+    def fill_claim(self, ep, key, owner, ttl_ms=2000):
+        from tpu3fs_torch.serving.service import FillClaimReq
+
+        return self.hosts[ep.node_id].fill_claim(
+            FillClaimReq(key=key, owner=owner, ttl_ms=ttl_ms))
+
+    def fill_release(self, ep, key, owner):
+        from tpu3fs_torch.serving.service import FillReleaseReq
+
+        return self.hosts[ep.node_id].fill_release(
+            FillReleaseReq(key=key, owner=owner))
+
+    def close(self):
+        self.hosts.clear()
+
+
+@contextlib.contextmanager
+def held_flusher(cache):
+    """Park a TieredKVCache's write-back flusher for the block, then start
+    a fresh one: what was buffered meanwhile drains in ``flush_batch``
+    batches in append order, the same batches on every run."""
+    import threading
+
+    cache._stop.set()
+    with cache._cond:
+        cache._cond.notify_all()
+    cache._flusher.join(timeout=10)
+    require(not cache._flusher.is_alive(), "the write-back flusher did not "
+            "park")
+    try:
+        yield
+    finally:
+        cache._stop.clear()
+        cache._flusher = threading.Thread(
+            target=cache._flush_loop, daemon=True, name="kvcache-flush")
+        cache._flusher.start()
+
+
+def reclaim(fab) -> int:
+    """``Fabric.run_gc`` until no removed file is left (one call takes at
+    most 64): the chunks of every removed entry are gone after it."""
+    total = n = fab.run_gc()
+    while n:
+        n = fab.run_gc()
+        total += n
+    return total
+
+
+def kv_run(dev, sizes: tuple, pages: list, sources, trace: bool = False,
+           digest: bool = False) -> dict:
+    """Steps 1-6 of the KV-cache phase on a fresh RS(12,4) fabric on
+    ``dev``: ``sizes`` = (A's blocks, shared, B's own), ``pages`` A's then
+    B's own host pages, ``sources`` the same pages as tensors on ``dev``,
+    against which every block that lands there is checked bit for bit.
+    Returns the record (replies, fleet counters, GC removals; with
+    ``digest`` also the sha256 of every block read and every target's
+    stored chunks), each request's host time (with ``trace`` its device
+    time; for a get, its fs read, decode and copy times) and the bytes
+    each end-to-end rate is over."""
+    import hashlib
+
+    from tpu3fs_torch.fabric import Fabric, SystemSetupConfig
+    from tpu3fs_torch.kvcache import (KVCacheClient, KVCacheGC, LeaseManager,
+                                      PrefixBlockStore)
+    from tpu3fs_torch.mgmtd.types import ServingEndpoint
+    from tpu3fs_torch.serving import FleetKVCache, ServingHost
+
+    n_a, shared, own = sizes
+    bt = KV_BLOCK_TOKENS
+    toks_a = list(range(n_a * bt))
+    toks_b = toks_a[:shared * bt] + [10_000_000 + t for t in range(own * bt)]
+    pages_a, pages_own = pages[:n_a], pages[KV_FULL[0]:KV_FULL[0] + own]
+    src_a = [sources[i] for i in range(n_a)]
+    src_b = src_a[:shared] + [sources[KV_FULL[0] + i] for i in range(own)]
+    page_bytes = pages_a[0].nbytes
+    rec, requests = {"blocks": {}, "counters": {}}, {}
+    endpoints = {n: ServingEndpoint(node_id=n) for n in (1, 2)}
+    routing = SimpleNamespace(serving=endpoints)
+    cap = 2 * (n_a + own) * (page_bytes + 4096)   # host tier, dirty buffer
+
+    def request(name, fn):
+        return timed_request(requests, name, fn, dev, trace)
+
+    fleet, store, leases = {}, {}, {}
+    peers = LoopbackPeers()
+    fab = None
+    try:
+        with deterministic(11, step_clock=True) as clock:
+            fab = Fabric(SystemSetupConfig(
+                num_storage_nodes=FAB_NODES, num_chains=FAB_CHAINS,
+                chunk_size=MIB, ec_k=K, ec_m=M), device=dev)
+            for n in (1, 2):
+                fs = KVCacheClient(fab.meta, fab.file_client(),
+                                   client_id=f"member{n}", inode_cache=4096)
+                fleet[n] = FleetKVCache(
+                    fs, node_id=n, routing=lambda: routing,
+                    peer_client=peers, capacity_bytes=cap,
+                    dirty_max_bytes=cap)
+                peers.hosts[n] = ServingHost(fleet[n], n,
+                                             claims=fleet[n].claims)
+                leases[n] = LeaseManager(fab.meta, owner=f"member{n}",
+                                         default_ttl_s=KV_TTL_S)
+                store[n] = PrefixBlockStore(fleet[n], block_tokens=bt,
+                                            leases=leases[n])
+
+            def get(name, n, toks, want, count=None, gone=()):
+                """``get_blocks(device=dev)``, timed by stage; every block
+                equal to its source on ``dev`` (a block at an index in
+                ``gone`` may also be a miss, never zeros)."""
+                s0 = dict(store[n].stage_s)
+                got = request(name, lambda: store[n].get_blocks(
+                    toks, count=count, device=dev))
+                requests[name].update({
+                    f"get_{k}_ms": (store[n].stage_s[k] - s0[k]) * 1e3
+                    for k in s0})
+                shas = []
+                for i, (blk, w) in enumerate(zip(got, want)):
+                    if blk is None:
+                        require(i in gone, f"{name}: block {i} is missing")
+                        shas.append(None)
+                        continue
+                    require(blk.device.type == dev.type and
+                            blk.dtype == w.dtype and blk.shape == w.shape and
+                            torch.equal(blk.view(torch.int16),
+                                        w.view(torch.int16)),
+                            f"{name}: block {i} differs from its page")
+                    shas.append(hashlib.sha256(
+                        blk.cpu().numpy().tobytes()).hexdigest()
+                        if digest else True)
+                require(len(got) == len(want), f"{name}: {len(got)} blocks")
+                rec["blocks"][name] = shas
+                rec["counters"][name] = {m: fleet[m].counters()
+                                         for m in (1, 2)}
+
+            def clear_tiers():
+                for m in (1, 2):
+                    fleet[m].tier.clear()
+
+            # 1: member 1 stores A write-through (one batch_put)
+            clock.advance()
+            rec["put_a"] = request("put_a_write_through", lambda: store[1]
+                                   .append_blocks(toks_a, pages_a,
+                                                  write_through=True))
+            # 2: member 2 matches B's prefix, pins it and gets it: peer
+            # fills from member 1's host tier
+            clock.advance()
+            m = request("match_prefix_b",
+                        lambda: store[2].match_prefix(toks_b))
+            rec["match_b"] = (m.blocks, m.tokens, m.keys)
+            lease = request("pin_prefix_b", lambda: store[2].pin_prefix(m))
+            rec["pinned"] = list(lease.keys)
+            get("get_b_prefix_peer_fill", 2, toks_b, src_b[:shared],
+                count=m.blocks)
+            # 3: B's own blocks through member 2's write-back buffer
+            clock.advance()
+            with held_flusher(fleet[2]):
+                rec["append_b"] = request(
+                    "append_b_write_back", lambda: store[2].append_blocks(
+                        toks_b, pages_own, start_block=shared))
+            drained = request("flush_b", lambda: fleet[2].flush(timeout=300))
+            require(drained and fleet[2].dirty_bytes() == 0
+                    and not fleet[2].flush_poisoned,
+                    "the write-back buffer did not drain")
+            # 4: A cold from the fs tier, then warm from the host tier
+            clock.advance()
+            clear_tiers()
+            m = request("match_prefix_a",
+                        lambda: store[1].match_prefix(toks_a))
+            rec["match_a"] = (m.blocks, m.tokens)
+            get("get_a_cold_fs_tier", 1, toks_a, src_a)
+            get("get_a_warm_host_hit", 1, toks_a, src_a)
+            # 5: the first node fails (m shards of every stripe); B from
+            # the fs tier through degraded reads; restart and resync
+            clock.advance()
+            victim = sorted(fab.nodes)[0]
+            fab.fail_node(victim)
+            clear_tiers()
+            get("get_b_degraded", 2, toks_b, src_b)
+            fab.restart_node(victim)
+            rec["resynced"] = request("resync", lambda: fab.resync_all(
+                rounds=6))
+            if digest:
+                rec["stored"] = fabric_stored(fab)
+            # 6: the capacity pass with A's shared prefix pinned, every
+            # removed entry's chunks reclaimed, both sessions read again
+            # (a GC'd block is a miss, never zeros), unpin, a TTL pass
+            clock.advance()
+            gc = KVCacheGC(fab.meta, ttl_s=KV_TTL_S, max_shards=1 << 20)
+            budget = n_a * page_bytes
+            rec["gc_capacity"] = request("gc_capacity_pass", lambda: gc
+                                         .capacity_pass(now=clock.t,
+                                                        capacity_bytes=budget))
+            keys = {"a": store[1].block_keys(toks_a),
+                    "b": store[2].block_keys(toks_b)}
+            rec["present"] = {s: fleet[1].fs.batch_contains(k)
+                              for s, k in keys.items()}
+            require(all(rec["present"]["a"][:shared]),
+                    "the capacity pass removed a pinned block")
+            require(rec["gc_capacity"] == own + 1 and
+                    not any(rec["present"]["a"][shared:]),
+                    f"the capacity pass removed {rec['gc_capacity']} "
+                    f"entries: want A's unpinned tail and one of B's")
+            rec["gc_chunks"] = request("run_gc", lambda: reclaim(fab))
+            clear_tiers()
+            gone = {s: {i for i, p in enumerate(rec["present"][s]) if not p}
+                    for s in keys}
+            get("get_b_after_gc", 2, toks_b, src_b, gone=gone["b"])
+            get("get_a_after_gc", 1, toks_a, src_a, gone=gone["a"])
+            for s, name in (("a", "get_a_after_gc"), ("b", "get_b_after_gc")):
+                require([x is not None for x in rec["blocks"][name]]
+                        == rec["present"][s],
+                        f"{name}: a GC'd block was served, or a kept one "
+                        "missed")
+            rec["unpinned"] = request("unpin_b",
+                                      lambda: leases[2].unpin(lease))
+            rec["gc_ttl"] = request("gc_ttl_pass", lambda: gc.run_once(
+                now=clock.t + KV_TTL_S + 1))
+            rec["gc_ttl_chunks"] = reclaim(fab)
+            rec["present_after"] = fleet[1].fs.batch_contains(
+                keys["a"] + keys["b"])
+            require(not any(rec["present_after"]),
+                    "an entry outlived the TTL pass")
+            rec["hosts"] = {n: vars(peers.hosts[n].stats()) for n in (1, 2)}
+        require(rec["put_a"] == n_a and rec["append_b"] == own and
+                rec["match_b"][0] == shared and rec["match_a"][0] == n_a,
+                "stored or matched block counts are off")
+        require(rec["counters"]["get_b_prefix_peer_fill"][2]["peer_hits"]
+                == shared, "member 2's prefix did not come from its peer")
+        return {"record": rec, "requests": requests,
+                "bytes": {"put": n_a * page_bytes, "flush": own * page_bytes,
+                          "peer_fill": shared * page_bytes,
+                          "cold": n_a * page_bytes, "warm": n_a * page_bytes,
+                          "degraded": (shared + own) * page_bytes}}
+    finally:
+        for n in fleet:
+            fleet[n].close(flush=False)
+        if fab is not None:
+            for node in fab.nodes.values():
+                node.service.stop_workers()
+
+
+def kvcache(dev):
+    """The KV-cache serving tier on the card: the sequence at small depth
+    on the card (also the warm-up), then at full size (the main path),
+    then at small depth on the CPU, whose record must equal the card's.
+    Returns the main run's launch counts and the run for ``kv_shares``."""
+    t0 = phase("phase 12: the KV-cache serving tier answers prefix blocks")
+    pages, sources = kv_pages(dev)
+    t_pages = time.perf_counter() - t0
+    small = kv_run(dev, KV_SMALL, pages, sources, digest=True)
+    zero_counts()
+    card = kv_run(dev, KV_FULL, pages, sources)
+    counts = read_counts()
+    require_main_path("the KV-cache tier", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    t_cpu = time.perf_counter()
+    cpu = kv_run(torch.device("cpu"), KV_SMALL, pages, sources.cpu(),
+                 digest=True)
+    card["cpu_route_s"] = time.perf_counter() - t_cpu
+    require(cpu["record"] == small["record"],
+            "the CPU run's replies, blocks, stored chunks or GC removals "
+            "differ from the card's")
+    card["pages_s"] = t_pages
+    req, nbytes = card["requests"], card["bytes"]
+    gib = lambda n, ms: n / (1 << 30) / (ms / 1e3)  # noqa: E731
+    card["e2e"] = {
+        "write_through_put_GiB_s": gib(nbytes["put"],
+                                       req["put_a_write_through"]["host_ms"]),
+        "write_back_flush_GiB_s": gib(nbytes["flush"],
+                                      req["flush_b"]["host_ms"]),
+        "cold_fs_tier_get_GiB_s": gib(nbytes["cold"],
+                                      req["get_a_cold_fs_tier"]["host_ms"]),
+        "peer_fill_GiB_s": gib(nbytes["peer_fill"],
+                               req["get_b_prefix_peer_fill"]["host_ms"]),
+        "host_hit_GiB_s": gib(nbytes["warm"],
+                              req["get_a_warm_host_hit"]["host_ms"]),
+        "degraded_get_GiB_s": gib(nbytes["degraded"],
+                                  req["get_b_degraded"]["host_ms"]),
+        "prefix_4096_tokens_on_card_ms": (
+            req["match_prefix_a"]["host_ms"]
+            + req["get_a_cold_fs_tier"]["host_ms"]),
+    }
+    log(f"kvcache: launches {counts}, e2e {json.dumps(card['e2e'])}, CPU "
+        f"route {card['cpu_route_s']:.1f} s, pages {t_pages:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return counts, card, (pages, sources)
+
+
+def kv_shares(dev, card: dict, data: tuple) -> None:
+    """The full-size KV-cache sequence again on the card, each request
+    under torch.profiler for its device time; logs each request's host
+    time, launches and get stages from the main path's run beside the
+    traced run's host and device times. Runs after phase 14's traces, as
+    ``storage_shares`` does."""
+    t0 = phase("phase 12 (continued): the KV-cache requests' device time")
+    traced = kv_run(dev, KV_FULL, *data, trace=True)
+    require(traced["record"] == card["record"],
+            "the traced card run differs from the main path's run")
+    rows = {name: dict(row, traced=traced["requests"][name])
+            for name, row in card["requests"].items()}
+    log(json.dumps({"kvcache_requests": rows, "e2e": card["e2e"],
+                    "cpu_route_s": card["cpu_route_s"],
+                    "pages_s": card["pages_s"],
+                    "shapes": "Llama-3.1-8B KV pages (32, 2, 8, 16, 128) "
+                              "float16, 2,097,208 B an entry; A 256 blocks, "
+                              "B 192 shared + 64; RS(12,4) over 4 nodes and "
+                              "2 chains, 1 MiB chunks"}))
+    for name, row in rows.items():
+        tr = row["traced"]
+        log(f"  {name:<24} host {row['host_ms']:10.3f} ms  K1 "
+            f"{row['launches'].get('gf2_matmul', 0):4d} K2 "
+            f"{row['launches'].get('crc32c_blocks', 0):6d} K3 "
+            f"{row['launches'].get('xor_reduce', 0):3d}  share "
+            f"{tr.get('device_share', 0.0):.4f}"
+            + (f"  fs_read {row['get_fs_read_ms']:.3f} decode "
+               f"{row['get_decode_ms']:.3f} copy {row['get_copy_ms']:.3f} ms"
+               if "get_fs_read_ms" in row else ""))
+    log(f"kvcache shares ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 13 ----------------------------------------------------------------
 def incidence_of_lines(lines, nodes: int) -> np.ndarray:
     """The (chains, nodes) incidence that a command file lays: its
     create-target lines name each chain's member nodes (node ids 10 + i)."""
@@ -1762,21 +2158,21 @@ def device_time_per_step(dev, problem, steps: int, host_ms_per_step: float):
 
     from tpu3fs_torch.placement import solve_placement
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.autograd import DeviceType
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         solve_placement(problem, steps=steps, device=dev)
         torch.cuda.synchronize()
     by_kind = {"swap_score_kernel": 0.0, "swap_apply_kernel": 0.0,
                "memcpy": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if not us:
+    for e in prof.profiler.kineto_results.events():  # the device's own
+        if e.device_type() != DeviceType.CUDA:
             continue
-        kind = next((k for k in by_kind if k in e.key), None)
+        name = e.name()
+        kind = next((k for k in by_kind if k in name), None)
         if kind is None:
-            kind = "memcpy" if "memcpy" in e.key.lower() else "other"
-        by_kind[kind] += us / 1e3 / steps
+            kind = "memcpy" if "memcpy" in name.lower() else "other"
+        by_kind[kind] += (e.end_ns() - e.start_ns()) / 1e6 / steps
     busy = sum(by_kind.values())
     if busy == 0:
         return None
@@ -1799,7 +2195,7 @@ def placement(dev, cmp: Compare) -> dict:
                                              swap_state)
     from tpu3fs_torch.placement import PlacementProblem, check_solution
 
-    t0 = phase("phase 12: chain-table placement through entry.gen_chain_table")
+    t0 = phase("phase 13: chain-table placement through entry.gen_chain_table")
     racks = [f"rack{i * RACKS // PLACE_NODES}" for i in range(PLACE_NODES)]
     tables = {
         "cr": (CR_WIDTH, CR_TARGETS, dict(steps=PLACE_STEPS),
@@ -2022,7 +2418,7 @@ def placement(dev, cmp: Compare) -> dict:
     return total
 
 
-# -- phase 13 ----------------------------------------------------------------
+# -- phase 14 ----------------------------------------------------------------
 def mma_rates(dev) -> dict:
     """Issue rate of the two mma forms on register operands, every SM busy
     (csrc/mma_rate.cu): the card's data sheet has no 1-bit rate."""
@@ -2291,7 +2687,7 @@ def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.stripe import StripeCodec
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
 
-    phase("phase 13: times (CUDA events, after warm-up)")
+    phase("phase 14: times (CUDA events, after warm-up)")
     rs = RSCode(K, M, device=dev)
     B, S = B_WRITE, S_WRITE
     data = rand_u8((B, K, S), 11, dev)
@@ -2516,6 +2912,10 @@ def main() -> int:
                     f"{got['graph_turns_ms']['new']} old "
                     f"{got['graph_turns_ms']['old']} ms (graph)")
         return 0
+    if sys.argv[1:] == ["--kvcache"]:
+        _, kv_card, kv_data = kvcache(dev)
+        kv_shares(dev, kv_card, kv_data)
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -2529,10 +2929,12 @@ def main() -> int:
     paths["multi_device"] = multi_device(dev)
     paths["storage"], inputs, card = storage(dev)
     paths["serving"], served = serving(dev)
+    paths["kvcache"], kv_card, kv_data = kvcache(dev)
     paths["placement"] = placement(dev, Compare())
     kernels = times(dev, paths, cmps)
     storage_shares(dev, inputs, card)
     serving_shares(dev, served)
+    kv_shares(dev, kv_card, kv_data)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,3 +74,33 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "Path", lambda p: tmp_path / "absent")
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.nvcc_path()
+
+
+def test_import_kvcache_and_serving_touches_no_cuda():
+    code = ("import sys, torch, tpu3fs_torch.kvcache, tpu3fs_torch.serving, "
+            "tpu3fs_torch.serving.service; "
+            "print(torch.cuda.is_initialized(), 'triton' in sys.modules, "
+            "tpu3fs_torch.kernels.library.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "0"]
+
+
+def test_get_blocks_on_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device='cuda' is usable")
+    import numpy as np
+
+    from tpu3fs_torch.kvcache import PrefixBlockStore, encode_array
+
+    raw = encode_array(np.ones((2, 4), np.float16))
+
+    class Cache:
+        def batch_get(self, keys):
+            return [raw] * len(keys)
+
+    store = PrefixBlockStore(Cache(), block_tokens=2)
+    assert len(store.get_blocks([1, 2], device="cpu")) == 1
+    for device in ("cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            store.get_blocks([1, 2], device=device)

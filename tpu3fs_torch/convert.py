@@ -5,8 +5,10 @@
 function from the same state. ``engine_from_chunks`` loads a plain dump of
 a storage target's committed chunks into the port's ``MemChunkEngine``,
 and ``fabric_from_dump`` a plain dump of a whole in-process cluster (its
-KV store and every target's chunks) into the port's ``Fabric``. The caller
-reads the arrays and the dumps; this module never imports ``tpu3fs``.
+KV store and every target's chunks) into the port's ``Fabric``. A KV
+cache carries across with it: its entries are files, and its pin leases
+xattrs on their inodes. The caller reads the arrays and the dumps; this
+module never imports ``tpu3fs``.
 """
 
 from __future__ import annotations

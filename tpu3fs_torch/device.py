@@ -18,6 +18,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def checked_device(device) -> torch.device:
+    """``resolve_device``, and a CUDA device must exist: an explicit
+    ``"cuda"`` on a machine with no card raises rather than falling back
+    to the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{dev} requested but no CUDA device is available; pass "
+            "device='cpu' for host tensors")
+    return dev
+
+
 def as_tensor(data, device: torch.device) -> torch.Tensor:
     """numpy array -> uint8 tensor on ``device``; a tensor must already lie
     on ``device`` (the codecs never move device-resident data silently)."""
