@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the tpu3fs_torch data plane, chain-table placement, storage tier
-and serving stack on one CUDA card.
+"""Drive the tpu3fs_torch data plane, chain-table placement, storage tier,
+serving stack, KV-cache tier, checkpoints and data loading on one CUDA
+card.
 
 Run from the repository root, with one card:
 
@@ -62,7 +63,7 @@ Phases, in order (any failure exits non-zero):
      re-joins and ResyncWorker brings it back, serving the same bytes.
      Steps 1-6 run on the card (the main path; K1 and K2 must launch and no
      plain version run), on the CPU with the plain versions and, after
-     phase 14's traces, again on the card under torch.profiler (each
+     phase 15's traces, again on the card under torch.profiler (each
      request's device time): all three must give the same replies, bytes,
      versions and checksums;
  11. the serving stack answering files through Fabric.meta and
@@ -83,9 +84,33 @@ Phases, in order (any failure exits non-zero):
      same sequence at 4 stripes (and 4 CR chunks) on the card and on the
      CPU must give identical records (reads, stored chunks with versions
      and CRCs, routing versions and target states, file lengths); after
-     phase 14 it runs again under torch.profiler for each request's device
+     phase 15 it runs again under torch.profiler for each request's device
      share;
- 12. chain-table placement through entry.gen_chain_table: the 180-node CR
+ 12. the KV-cache serving tier (kv_run): Llama-3.1-8B KV pages
+     (32, 2, 8, 16, 128) float16 drawn on the card, session A of 256
+     blocks, B of 192 shared + 64, two FleetKVCache members over phase 11's
+     RS(12,4) fabric with a loopback peer client; every block that lands
+     on the card held bit for bit against its source there; the sequence
+     at 8 blocks on the card and on the CPU must give equal records; after
+     phase 15 the full run again under torch.profiler;
+ 13. checkpoints and training data loading (train_run): one Llama-3.1-8B
+     decoder layer in float32 (9 leaves, 872,448,000 B) drawn on the card
+     through tpu3fs_torch.ckpt on phase 11's RS(12,4) fabric: a sync save,
+     a verified and a byte-range restore onto templates on the card (every
+     leaf bit-equal to its source there), an async save (its stall, then
+     its commit), the first node failed and step 2 restored degraded (K1
+     decodes), an empty-disk restart and resync_all, keep-last-1
+     retention; then 4,096 records of 8,192 int32 tokens packed into 4
+     record files (RecordFileWriter, streaming) and one shuffled,
+     CRC-verified epoch (global batch 64, depth 2) of DTensor batches on a
+     one-rank NCCL (dp, chain) mesh, every batch's local tensor held
+     against its records on the card, and the epoch again cut at step 24,
+     its state saved and resumed: the exact remaining batches. The same
+     sequence at 2 leaves of 1 MiB and 64 records on the card and on the
+     CPU must give equal records (manifests, stored chunks and CRCs, batch
+     ids and bytes, the saved state); after phase 15 the full-size save,
+     verified restore, packing and epoch again under torch.profiler;
+ 14. chain-table placement through entry.gen_chain_table: the 180-node CR
      table (width 3, 96 targets per node: b = 5760 chains, 128 proposals a
      step, 200 steps, the CLI's default) and the EC(12,4) table (16 targets
      per node, 18 racks of 10 nodes, at most 4 members of a chain per rack,
@@ -97,20 +122,21 @@ Phases, in order (any failure exits non-zero):
      build from the final table; steps, λ against its lower bound, and one
      CR step's split (draws, copy in, swap kernel, copy back, apply) beside
      the full-Gram route's (proposals, copy in, score_batch, copy back);
- 13. times with CUDA events at the main path's shapes, the earlier kernel
+ 15. times with CUDA events at the main path's shapes, the earlier kernel
      (or the plain version) and the new one in turns, beside each kernel's
      bound and its plain version's time (K4 at every shape of FOLD_SHAPES,
      from CUDA graphs and eagerly, and a torch.profiler trace of a graph
      of K4 calls: the new kernel must be one kernel a call, no memset); the
      times of the hop ops and the one-rank chain step.
-Phases 7-12 are the main path: every kernel count is set to 0 just
+Phases 7-14 are the main path: every kernel count is set to 0 just
 before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
 the swap scorer; the full-Gram score_batch is its check).
 ``python3 chip_smoke.py --fold-variants`` instead builds the kernels and
 times K4's launch plan varied (fold_variants); ``--kvcache`` builds them
-and runs phase 12 alone, with its traced run.
+and runs phase 12 alone, with its traced run; ``--ckpt`` builds them and
+runs phase 13 alone, with its traced run.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -319,12 +345,17 @@ def require_main_path(path: str, counts: dict, launched) -> None:
 
 
 # -- phase 1 -----------------------------------------------------------------
-def environment() -> str:
-    phase("phase 1: environment")
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    log(smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}")
+    return smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}"
+
+
+def environment() -> str:
+    phase("phase 1: environment")
+    log(card_line())
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -1459,7 +1490,7 @@ def storage_shares(dev, inputs: dict, card: dict) -> None:
     """Steps 1-6 again on the card, each request under torch.profiler for
     its device time (kernels, copies); logs every request's host time from
     the main path's run beside the traced run's host and device times.
-    Runs after phase 14's traces, which its profiler sessions must not
+    Runs after phase 15's traces, which its profiler sessions must not
     precede."""
     t0 = phase("phase 10 (continued): the storage requests' device time")
     traced = storage_run(dev, inputs, trace=True)
@@ -1752,7 +1783,7 @@ def serving_shares(dev, card: dict) -> None:
     """The serving sequence again on the card, each request under
     torch.profiler for its device time; logs every request's host time
     from the main path's run beside the traced run's host and device
-    times. Runs after phase 14's traces, as ``storage_shares`` does."""
+    times. Runs after phase 15's traces, as ``storage_shares`` does."""
     t0 = phase("phase 11 (continued): the serving requests' device time")
     traced = serving_run(dev, FAB_STRIPES, trace=True)
     require(traced["record"] == card["record"],
@@ -2102,7 +2133,7 @@ def kv_shares(dev, card: dict, data: tuple) -> None:
     """The full-size KV-cache sequence again on the card, each request
     under torch.profiler for its device time; logs each request's host
     time, launches and get stages from the main path's run beside the
-    traced run's host and device times. Runs after phase 14's traces, as
+    traced run's host and device times. Runs after phase 15's traces, as
     ``storage_shares`` does."""
     t0 = phase("phase 12 (continued): the KV-cache requests' device time")
     traced = kv_run(dev, KV_FULL, *data, trace=True)
@@ -2131,6 +2162,326 @@ def kv_shares(dev, card: dict, data: tuple) -> None:
 
 
 # -- phase 13 ----------------------------------------------------------------
+# one decoder layer of Llama-3.1-8B at the widths of its public config.json
+# (hidden 4096, 32 query heads and 8 KV heads of 128, intermediate 14336)
+# in float32, the master weights of a mixed-precision run: 218,112,000
+# parameters, 872,448,000 B a step (1 of the 32 layers; no embeddings, no
+# AdamW moments). Tokenized pretraining sequences of 8,192 tokens (Llama
+# 3's context), int32 (its vocabulary of 128,256 does not fit in 16 bits):
+# a record is 32 KiB; 4,096 records (128 MiB) in 4 files; global batch 64,
+# depth 2, so an epoch is 64 steps. The fabric is phase 11's RS(12,4) one.
+# The card-versus-CPU record runs 2 leaves of 1 MiB and 64 records.
+LLAMA_LAYER = {
+    "self_attn.q_proj.weight": (4096, 4096),
+    "self_attn.k_proj.weight": (1024, 4096),
+    "self_attn.v_proj.weight": (1024, 4096),
+    "self_attn.o_proj.weight": (4096, 4096),
+    "mlp.gate_proj.weight": (14336, 4096),
+    "mlp.up_proj.weight": (14336, 4096),
+    "mlp.down_proj.weight": (4096, 14336),
+    "input_layernorm.weight": (4096,),
+    "post_attention_layernorm.weight": (4096,),
+}
+SEQ_TOKENS, VOCAB = 8192, 128_256
+TRAIN_FULL = dict(leaves=LLAMA_LAYER, records=4096, files=4, batch=64,
+                  cut=24)
+TRAIN_SMALL = dict(leaves={"a.weight": (512, 512), "b.weight": (256, 1024)},
+                   records=64, files=4, batch=8, cut=3)
+
+
+def train_data(dev, sizes: dict) -> dict:
+    """The layer's leaves (normal float32) and the token records (uniform
+    below the vocabulary), drawn on ``dev`` from one seed; the records
+    also as host bytes, what the packer writes."""
+    g = torch.Generator(device=dev).manual_seed(2024)
+    leaves = {f"model.layers.0.{k}": torch.randn(shape, generator=g,
+                                                 device=dev)
+              for k, shape in sizes["leaves"].items()}
+    tokens = torch.randint(0, VOCAB, (sizes["records"], SEQ_TOKENS),
+                           generator=g, device=dev, dtype=torch.int32)
+    host = tokens.cpu().numpy()
+    return dict(sizes, tree=leaves, tokens=tokens,
+                host=[host[i].tobytes() for i in range(len(host))])
+
+
+def on_cpu(data: dict) -> dict:
+    """The same data with its tensors copied to the machine's CPU."""
+    return dict(data, tree={k: v.cpu() for k, v in data["tree"].items()},
+                tokens=data["tokens"].cpu())
+
+
+@contextlib.contextmanager
+def one_rank_group(dev):
+    """A one-rank process group for ``dev`` (NCCL on the card, gloo on the
+    CPU) and its (1, 1) storage mesh (``dp``, ``chain``), as phase 9 makes
+    one; destroyed on exit."""
+    import torch.distributed as dist
+
+    from tpu3fs_torch.parallel import backend_for, make_storage_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend_for(dev),
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        yield make_storage_mesh(1, device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_run(dev, data: dict, mesh, trace: bool = False,
+              digest: bool = False) -> dict:
+    """Steps 1-6 of the training phase on a fresh RS(12,4) fabric on
+    ``dev``: (1) save step 1, restore it verified and byte-range exact
+    onto templates on ``dev``; (2) ``save_async`` step 2 (the stall, then
+    the commit); (3) fail the first node, restore step 2 degraded, restart
+    it on empty engines and ``resync_all``; (4) keep-last-1 retention;
+    (5) pack the records into ``files`` record files (streaming, declared
+    count); (6) one shuffled, CRC-verified epoch on ``mesh``, then the
+    same epoch cut at ``cut`` steps, its state saved (``StateStore``) and
+    resumed. Every restored leaf is held bit for bit against its source
+    on ``dev``, every batch's local tensor against its records there.
+    With ``trace`` it runs only the requests whose device share is
+    reported, each under torch.profiler: step 1's save and verified
+    restore, the packing and the epoch (not the byte-range restore,
+    steps 2-4 or the resume). Returns the record (manifests, GC, the
+    batches' ids; with ``digest`` the stored chunks and the batches'
+    sha256), each request's host time (with ``trace`` its device time)
+    and the bytes each rate is over."""
+    import hashlib
+
+    from tpu3fs_torch.ckpt import CheckpointManager, RetentionPolicy
+    from tpu3fs_torch.dataload import (DataLoader, LoaderConfig,
+                                       PackedDataset, RecordFileWriter,
+                                       StateStore)
+    from tpu3fs_torch.fabric import Fabric, SystemSetupConfig
+    from tpu3fs_torch.storage.engine import MemChunkEngine
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    leaves, tokens = data["tree"], data["tokens"]
+    rec, requests, stall = {}, {}, {}
+
+    def request(name, fn):
+        return timed_request(requests, name, fn, dev, trace)
+
+    fab = None
+    try:
+        with deterministic(13, step_clock=True) as clock:
+            fab = Fabric(SystemSetupConfig(
+                num_storage_nodes=FAB_NODES, num_chains=FAB_CHAINS,
+                chunk_size=MIB, ec_k=K, ec_m=M), device=dev)
+            mgr = CheckpointManager(fab.meta, fab.file_client(), kv=fab.kv,
+                                    clock=clock.time,
+                                    policy=RetentionPolicy(keep_last=1))
+            like = {k: torch.empty_like(v) for k, v in leaves.items()}
+
+            def restore(name, step, verify=True):
+                got = request(name, lambda: mgr.restore(step, like=like,
+                                                        verify=verify))
+                for k, v in leaves.items():
+                    require(got[k].device == v.device and torch.equal(
+                        got[k].view(torch.int32), v.view(torch.int32)),
+                        f"{name}: leaf {k} differs from its source")
+
+            # 1: a sync save; verified and byte-range-exact restores
+            clock.advance()
+            rec["manifest_1"] = request("save_sync", lambda: mgr.save(
+                leaves, 1)).encode()
+            restore("restore_verified", 1)
+            lost = 0
+            if not trace:
+                restore("restore_ranged", 1, verify=False)
+                # 2: an async save: the stall until it returns, the commit
+                clock.advance()
+                handle = request("save_async_stall",
+                                 lambda: mgr.save_async(leaves, 2))
+                rec["async"] = request("save_async_commit",
+                                       lambda: handle.result(600.0))
+                rec["manifest_2"] = mgr.manifest(2).encode()
+                # 3: the first node fails (m shards of every stripe); step 2
+                # restores through decodes; the node restarts empty, resyncs
+                clock.advance()
+                victim = sorted(fab.nodes)[0]
+                lost = sum(t.engine.used_size()
+                           for t in fab.nodes[victim].service.targets())
+                fab.fail_node(victim)
+                restore("restore_degraded", 2)
+                for t in fab.nodes[victim].service.targets():
+                    t.engine = MemChunkEngine(device=dev)
+                fab.restart_node(victim)
+                rec["resynced"] = request("resync", lambda: fab.resync_all(
+                    rounds=6))
+                requests["resync"]["lost_bytes"] = lost
+                # 4: keep-last-1 retention: step 1 goes to the trash
+                clock.advance()
+                rec["gc_removed"] = request("gc_keep_last_1", mgr.run_gc)
+                rec["steps"] = mgr.steps()
+                require(rec["gc_removed"] == 1 and rec["steps"] == [2],
+                        f"retention kept steps {rec['steps']}")
+            if digest:
+                rec["stored_ckpt"] = fabric_stored(fab)
+            # 5: the records packed into record files, streaming
+            clock.advance()
+            fio = fab.file_client()
+            fab.meta.mkdirs("/data", recursive=True)
+            per = data["records"] // data["files"]
+            paths = [f"/data/tokens{i}.rec" for i in range(data["files"])]
+
+            def pack():
+                for i, path in enumerate(paths):
+                    w = RecordFileWriter(fab.meta, fio, path,
+                                         num_records=per)
+                    for r in data["host"][i * per:(i + 1) * per]:
+                        w.append(r)
+                    w.commit()
+
+            request("pack_records", pack)
+            # 6: a shuffled, verified epoch of DTensor batches on the mesh;
+            # the epoch again, cut, its state saved, resumed
+            ds = PackedDataset(fab.meta, fio, paths)
+            cfg = dict(global_batch=data["batch"], seed=5, dtype="<i4",
+                       sample_shape=(SEQ_TOKENS,), depth=2, epochs=1)
+
+            def check(b):
+                local = b.data.to_local()
+                require(isinstance(b.data, DTensor) and tuple(b.data.shape)
+                        == (data["batch"], SEQ_TOKENS)
+                        and b.data.placements == (Shard(0), Replicate())
+                        and local.device == tokens.device and torch.equal(
+                            local, tokens[torch.tensor(b.ids,
+                                                       device=tokens.device)]),
+                        f"batch {b.step}: its tokens differ from the records")
+                return (b.epoch, b.step, b.ids,
+                        hashlib.sha256(local.cpu().numpy().tobytes())
+                        .hexdigest() if digest else None)
+
+            def epoch():
+                with DataLoader(ds, LoaderConfig(**cfg), mesh=mesh) as ld:
+                    out = [check(b) for b in ld]
+                    (stall["epoch"],) = ld._stall_ms.collect(0.0)
+                return out
+
+            rec["epoch"] = request("epoch", epoch)
+            ids = [i for _, _, b, _ in rec["epoch"] for i in b]
+            require(sorted(ids) == list(range(data["records"])),
+                    "the epoch did not cover every record once")
+
+            def resume():
+                store = StateStore(fab.meta, fio, "/data/loader.state")
+                with DataLoader(ds, LoaderConfig(**cfg), mesh=mesh) as ld:
+                    head = [check(next(ld)) for _ in range(data["cut"])]
+                    store.save(ld.state())
+                state = store.load()
+                with DataLoader(ds, LoaderConfig(**cfg), mesh=mesh,
+                                state=state) as ld:
+                    tail = [check(b) for b in ld]
+                return head, tail, state.encode()
+
+            if not trace:
+                head, tail, rec["state"] = request("epoch_resume", resume)
+                require(head + tail == rec["epoch"],
+                        "the resumed loader did not yield the exact "
+                        "remaining batches")
+            if digest:
+                rec["stored"] = fabric_stored(fab)
+        ckpt_bytes = sum(v.numel() * v.element_size() for v in leaves.values())
+        return {"record": rec, "requests": requests, "stall": stall,
+                "bytes": {"ckpt": ckpt_bytes, "lost": lost,
+                          "records": data["records"] * SEQ_TOKENS * 4}}
+    finally:
+        if fab is not None:
+            for node in fab.nodes.values():
+                node.service.stop_workers()
+
+
+def train(dev):
+    """Checkpoints and data loading on the card: the sequence at small
+    depth on the card (also the warm-up), then at full size (the main
+    path), then at small depth on the CPU, whose record must equal the
+    card's. Returns the main run's launch counts, the run and the data
+    for ``train_shares``."""
+    t0 = phase("phase 13: checkpoints and training data loading")
+    full = train_data(dev, TRAIN_FULL)
+    small = train_data(dev, TRAIN_SMALL)
+    with one_rank_group(dev) as mesh:
+        card_small = train_run(dev, small, mesh, digest=True)
+        zero_counts()
+        card = train_run(dev, full, mesh)
+        counts = read_counts()
+    require_main_path("checkpoints and data loading", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    cpu_dev = torch.device("cpu")
+    t_cpu = time.perf_counter()
+    with one_rank_group(cpu_dev) as mesh:
+        cpu = train_run(cpu_dev, on_cpu(small), mesh, digest=True)
+    card["cpu_route_s"] = time.perf_counter() - t_cpu
+    for key, got in cpu["record"].items():
+        require(got == card_small["record"][key],
+                f"the CPU run's {key} differs from the card's")
+    req, nbytes = card["requests"], card["bytes"]
+    gib = lambda n, ms: n / (1 << 30) / (ms / 1e3)  # noqa: E731
+    ck = nbytes["ckpt"]
+    stall = card["stall"]["epoch"]
+    card["e2e"] = {
+        "save_GiB_s": gib(ck, req["save_sync"]["host_ms"]),
+        "restore_verified_GiB_s": gib(ck, req["restore_verified"]["host_ms"]),
+        "restore_ranged_GiB_s": gib(ck, req["restore_ranged"]["host_ms"]),
+        "restore_degraded_GiB_s": gib(ck, req["restore_degraded"]["host_ms"]),
+        "async_commit_GiB_s": gib(ck, req["save_async_commit"]["host_ms"]),
+        "async_stall_ms": req["save_async_stall"]["host_ms"],
+        "rebuild_MiB_s": nbytes["lost"] / MIB
+        / (req["resync"]["host_ms"] / 1e3),
+        "pack_GiB_s": gib(nbytes["records"], req["pack_records"]["host_ms"]),
+        "loader_samples_s": TRAIN_FULL["records"]
+        / (req["epoch"]["host_ms"] / 1e3),
+        "loader_GiB_s": gib(nbytes["records"], req["epoch"]["host_ms"]),
+        "dataload_stall_ms": {k: getattr(stall, k) for k in (
+            "count", "mean", "p50", "p99", "max", "value")},
+    }
+    log(f"train: launches {counts}, e2e {json.dumps(card['e2e'])}, CPU "
+        f"route {card['cpu_route_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
+    return counts, card, full
+
+
+def train_shares(dev, run: dict, data: dict) -> None:
+    """The full-size save, verified restore, packing and epoch again on
+    the card, each under torch.profiler for its device time; logs each
+    request's host time and launches from the main path's run beside the
+    traced run's host and device times (none for the requests the traced
+    run leaves out). Runs after phase 15's traces, as ``storage_shares``
+    does."""
+    t0 = phase("phase 13 (continued): the training requests' device time")
+    with one_rank_group(dev) as mesh:
+        traced = train_run(dev, data, mesh, trace=True)
+    for key, got in traced["record"].items():
+        require(got == run["record"][key],
+                f"the traced card run's {key} differs from the main path's")
+    rows = {name: dict(row, traced=traced["requests"].get(name, {}))
+            for name, row in run["requests"].items()}
+    log(json.dumps({"train_requests": rows, "e2e": run["e2e"],
+                    "card": card_line(), "cpu_route_s": run["cpu_route_s"],
+                    "shapes": "one Llama-3.1-8B decoder layer, float32, 9 "
+                              "leaves, 872,448,000 B; 4,096 records of "
+                              "8,192 int32 tokens in 4 files, global batch "
+                              "64, depth 2; RS(12,4) over 4 nodes and 2 "
+                              "chains, 1 MiB chunks"}))
+    for name, row in rows.items():
+        tr = row["traced"]
+        shares = (f"traced host {tr['host_ms']:10.3f} ms, share "
+                  f"{tr['device_share']:.4f}" if tr else "not traced")
+        log(f"  {name:<20} host {row['host_ms']:10.3f} ms  K1 "
+            f"{row['launches'].get('gf2_matmul', 0):5d} K2 "
+            f"{row['launches'].get('crc32c_blocks', 0):6d} K3 "
+            f"{row['launches'].get('xor_reduce', 0):3d}  {shares}")
+    log(f"train shares ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 14 ----------------------------------------------------------------
 def incidence_of_lines(lines, nodes: int) -> np.ndarray:
     """The (chains, nodes) incidence that a command file lays: its
     create-target lines name each chain's member nodes (node ids 10 + i)."""
@@ -2195,7 +2546,7 @@ def placement(dev, cmp: Compare) -> dict:
                                              swap_state)
     from tpu3fs_torch.placement import PlacementProblem, check_solution
 
-    t0 = phase("phase 13: chain-table placement through entry.gen_chain_table")
+    t0 = phase("phase 14: chain-table placement through entry.gen_chain_table")
     racks = [f"rack{i * RACKS // PLACE_NODES}" for i in range(PLACE_NODES)]
     tables = {
         "cr": (CR_WIDTH, CR_TARGETS, dict(steps=PLACE_STEPS),
@@ -2418,7 +2769,7 @@ def placement(dev, cmp: Compare) -> dict:
     return total
 
 
-# -- phase 14 ----------------------------------------------------------------
+# -- phase 15 ----------------------------------------------------------------
 def mma_rates(dev) -> dict:
     """Issue rate of the two mma forms on register operands, every SM busy
     (csrc/mma_rate.cu): the card's data sheet has no 1-bit rate."""
@@ -2687,7 +3038,7 @@ def times(dev, paths: dict, cmps: dict):
     from tpu3fs_torch.ops.stripe import StripeCodec
     from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
 
-    phase("phase 14: times (CUDA events, after warm-up)")
+    phase("phase 15: times (CUDA events, after warm-up)")
     rs = RSCode(K, M, device=dev)
     B, S = B_WRITE, S_WRITE
     data = rand_u8((B, K, S), 11, dev)
@@ -2916,6 +3267,10 @@ def main() -> int:
         _, kv_card, kv_data = kvcache(dev)
         kv_shares(dev, kv_card, kv_data)
         return 0
+    if sys.argv[1:] == ["--ckpt"]:
+        _, train_card, train_full = train(dev)
+        train_shares(dev, train_card, train_full)
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -2930,11 +3285,13 @@ def main() -> int:
     paths["storage"], inputs, card = storage(dev)
     paths["serving"], served = serving(dev)
     paths["kvcache"], kv_card, kv_data = kvcache(dev)
+    paths["train"], train_card, train_full = train(dev)
     paths["placement"] = placement(dev, Compare())
     kernels = times(dev, paths, cmps)
     storage_shares(dev, inputs, card)
     serving_shares(dev, served)
     kv_shares(dev, kv_card, kv_data)
+    train_shares(dev, train_card, train_full)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -123,3 +123,25 @@ def test_crc32c_xor_matches_jax(length):
     got = tcrc.crc32c_xor(ca, cb, length)
     assert got == jcrc.crc32c_xor(ca, cb, length)
     assert got == tcrc.crc32c_py((a ^ b).tobytes())
+
+
+@pytest.mark.parametrize("sizes,spans", [
+    ([], []),
+    ([5, 0, 17], [(0, 0), (0, 3)]),
+    ([100, 100, 37, 1, 64], [(0, 2), (2, 3), (3, 5)]),
+])
+def test_combine_spans_is_the_crc_of_the_joined_pieces(sizes, spans):
+    rng = np.random.default_rng(len(sizes) + sum(sizes))
+    pieces = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in sizes]
+    got = tcrc.combine_spans([tcrc.crc32c(p) for p in pieces], sizes, spans)
+    assert got == [jcrc.crc32c(b"".join(pieces[lo:hi])) for lo, hi in spans]
+
+
+@pytest.mark.parametrize("lengths", [[0], [1, 99, 100, 101], [250, 3, 0]])
+def test_crc32c_pieces_matches_the_whole_buffer_crc(lengths, monkeypatch):
+    monkeypatch.setattr(tcrc, "PIECE_BYTES", 100)
+    rng = np.random.default_rng(sum(lengths))
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8) for n in lengths]
+    got = tcrc.crc32c_pieces(bufs, device="cpu")
+    assert got == [jcrc.crc32c(b.tobytes()) for b in bufs]

@@ -391,3 +391,44 @@ def test_one_codec_from_8_threads_counts_exactly():
     assert BatchCrc32c.compute.calls - k2 == n
     assert xor_reduce_plain.calls - k3 == n
     assert len({id(f) for f in fns}) == 1
+
+
+class _SlowTake:
+    """A queue whose ``get`` returns only after ``delay_s``: the window in
+    which a runner has taken an attempt but is still counted idle."""
+
+    def __init__(self, q, delay_s):
+        self._q, self._delay = q, delay_s
+
+    def put(self, fn):
+        self._q.put(fn)
+
+    def get(self):
+        fn = self._q.get()
+        time.sleep(self._delay)
+        return fn
+
+
+def test_hedge_runner_pool_never_queues_a_backup_behind_its_primary():
+    """With one runner idle, a primary that blocks and a backup submitted
+    at once: the backup gets a runner of its own. (The JAX package's pool
+    spawned only when no runner was idle, so a runner about to take the
+    primary left the backup queued behind it; seen as a lost hedge in a
+    loaded test run.)"""
+    from tpu3fs_torch.client.hedging import _RunnerPool
+
+    pool = _RunnerPool()
+    warm = threading.Event()
+    pool.submit(warm.set)
+    assert warm.wait(10)
+    deadline = time.monotonic() + 10
+    while pool._idle != 1 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    pool._q = _SlowTake(pool._q, 0.2)
+    release, ran = threading.Event(), threading.Event()
+    try:
+        pool.submit(lambda: release.wait(30))
+        pool.submit(ran.set)
+        assert ran.wait(5), "the second attempt waited behind the first"
+    finally:
+        release.set()

@@ -104,3 +104,35 @@ def test_get_blocks_on_cuda_raises_without_a_card():
     for device in ("cuda", "cuda:0", torch.device("cuda")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             store.get_blocks([1, 2], device=device)
+
+
+TRAIN_FILES = sorted((ROOT / "tpu3fs_torch" / "ckpt").glob("*.py")) + sorted(
+    (ROOT / "tpu3fs_torch" / "dataload").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", TRAIN_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_training_modules_never_call_the_scalar_crc(path):
+    """The scalar CRC is a Python loop over every byte: checkpoint and
+    data-loading modules checksum through crc32c_pieces (one K2 launch a
+    batch) and never name crc32c or crc32c_py."""
+    scalar = {"crc32c", "crc32c_py"}
+    named = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.ImportFrom):
+            named |= {a.name for a in node.names} & scalar
+        elif isinstance(node, ast.Name) and node.id in scalar:
+            named.add(node.id)
+        elif isinstance(node, ast.Attribute) and node.attr in scalar:
+            named.add(node.attr)
+    assert not named, f"{path.name} names {sorted(named)}"
+
+
+def test_import_ckpt_and_dataload_touches_no_cuda():
+    code = ("import sys, torch, tpu3fs_torch.ckpt, tpu3fs_torch.dataload, "
+            "tpu3fs_torch.utils.trash; "
+            "print(torch.cuda.is_initialized(), 'triton' in sys.modules, "
+            "tpu3fs_torch.kernels.library.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "0"]

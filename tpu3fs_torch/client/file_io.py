@@ -17,6 +17,7 @@ from typing import Iterable, List, Optional, Tuple
 
 from tpu3fs_torch.client.storage_client import StorageClient
 from tpu3fs_torch.meta.types import Inode, Layout
+from tpu3fs_torch.ops.crc32c import combine_spans
 from tpu3fs_torch.storage.types import Checksum, ChunkId
 from tpu3fs_torch.utils.result import Code, FsError, Status
 
@@ -244,12 +245,10 @@ class FileIoClient:
         if with_checksums:
             part_crcs = (Checksum.of_many(parts, self._storage.device)
                          if parts else [])
-            sums = []
-            for lo, hi in spans:
-                acc = Checksum()
-                for c in part_crcs[lo:hi]:
-                    acc = acc.combine(c)
-                sums.append(acc)
+            sizes = [c.length for c in part_crcs]
+            sums = [Checksum(v, sum(sizes[lo:hi])) for v, (lo, hi) in zip(
+                combine_spans([c.value for c in part_crcs], sizes, spans),
+                spans)]
         for ops, run_cs, idxs in cr_runs:
             self._flush_cr(ops, run_cs,
                            op_crcs=([part_crcs[j].value for j in idxs]

@@ -1,8 +1,10 @@
 """Hedged reads: arm a backup request to another replica after an
 adaptive delay; first reply wins.
 
-The port's own copy of ``tpu3fs/client/hedging.py``,
-unchanged but for its imports.
+The port's own copy of ``tpu3fs/client/hedging.py``, unchanged but for
+its imports and one fix: ``_RunnerPool.submit`` spawns a runner unless an
+idle one is left for the new attempt (the JAX package's pool could queue
+a backup behind the primary a just-idle runner was about to take).
 
 CRAQ's apportioned queries let ANY serving replica answer a committed
 read, so the classic tail-latency defense applies: when the primary
@@ -56,11 +58,16 @@ class _RunnerPool:
         self._lock = threading.Lock()
         self._threads = 0
         self._idle = 0
+        self._queued = 0  # submitted, not yet taken by a runner
         self._max = int(max_workers)
 
     def submit(self, fn: Callable[[], None]) -> None:
+        # spawn unless an idle runner is left for THIS attempt: a runner
+        # counted idle may be about to take an attempt queued before it
+        # (a hedge's backup must never wait behind its blocked primary)
         with self._lock:
-            spawn = self._idle == 0 and self._threads < self._max
+            self._queued += 1
+            spawn = self._queued > self._idle and self._threads < self._max
             if spawn:
                 self._threads += 1
         if spawn:
@@ -75,6 +82,7 @@ class _RunnerPool:
             fn = self._q.get()
             with self._lock:
                 self._idle -= 1
+                self._queued -= 1
             try:
                 fn()
             except BaseException:

@@ -18,7 +18,10 @@ matmuls over bit-planes, as the JAX codec's einsums) only for a tensor on
 the CPU.
 
 ``crc32c_many`` checksums buffers of any lengths (the storage tier's chunk
-checksums) with one ``BatchCrc32c`` call over front-padded rows.
+checksums) with one ``BatchCrc32c`` call over front-padded rows;
+``crc32c_pieces`` does so over fixed-size pieces of each buffer, so buffers
+of very different lengths (a checkpoint's shards) are not all padded to
+the longest.
 """
 
 from __future__ import annotations
@@ -385,3 +388,38 @@ def crc32c_many(bufs: Sequence, device=None) -> List[int]:
     raw = crcs.view(torch.int32).cpu().numpy().view(np.uint32)
     pad = crc32c_zeros(size)
     return [int(c) ^ pad ^ crc32c_zeros(v.size) for c, v in zip(raw, views)]
+
+
+#: the piece ``crc32c_pieces`` cuts buffers into: the default chunk size
+PIECE_BYTES = 1 << 20
+
+
+def combine_spans(crcs: Sequence[int], sizes: Sequence[int],
+                  spans: Sequence[Tuple[int, int]]) -> List[int]:
+    """Fold consecutive pieces into one CRC per span: span (lo, hi) is the
+    CRC of pieces lo..hi-1 (CRCs ``crcs``, lengths ``sizes``) end to end,
+    by ``crc32c_combine``. The write path's per-file sums and
+    ``crc32c_pieces`` both fold this way."""
+    out = []
+    for lo, hi in spans:
+        acc = 0
+        for j in range(lo, hi):
+            acc = crc32c_combine(acc, crcs[j], sizes[j])
+        out.append(acc)
+    return out
+
+
+def crc32c_pieces(bufs: Sequence, device=None) -> List[int]:
+    """CRC32C of each buffer with one ``crc32c_many`` call (one K2 launch)
+    over its ``PIECE_BYTES`` slices, folded per buffer by
+    ``combine_spans``. Rows are padded to the longest piece, not to the
+    longest buffer."""
+    views = [_as_u8(b) for b in bufs]
+    parts, spans = [], []
+    for v in views:
+        lo = len(parts)
+        parts.extend(v[o:o + PIECE_BYTES]
+                     for o in range(0, v.size, PIECE_BYTES))
+        spans.append((lo, len(parts)))
+    crcs = crc32c_many(parts, device) if parts else []
+    return combine_spans(crcs, [p.size for p in parts], spans)

@@ -1,6 +1,6 @@
-"""Host utilities (``result``, ``config``, ``fault_injection``): the port's
-own copies of the modules of ``tpu3fs/utils/`` that the storage tier
-imports."""
+"""Host utilities (``result``, ``config``, ``fault_injection``, ``trash``):
+the port's own copies of the modules of ``tpu3fs/utils/`` that the storage
+tier and the checkpoint retention import."""
 
 from tpu3fs_torch.utils.result import (  # noqa: F401
     Code,
