@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the tpu3fs_torch data plane, chain-table placement, storage tier,
-serving stack, KV-cache tier, checkpoints and data loading on one CUDA
-card.
+serving stack, KV-cache tier, checkpoints, data loading, concurrent fetch,
+readahead and the trace sink on one CUDA card.
 
 Run from the repository root, with one card:
 
@@ -127,8 +127,29 @@ Phases, in order (any failure exits non-zero):
      bound and its plain version's time (K4 at every shape of FOLD_SHAPES,
      from CUDA graphs and eagerly, and a torch.profiler trace of a graph
      of K4 calls: the new kernel must be one kernel a call, no memset); the
-     times of the hop ops and the one-rank chain step.
-Phases 7-14 are the main path: every kernel count is set to 0 just
+     times of the hop ops and the one-rank chain step;
+ 16. concurrent fetch, readahead and the trace sink (fetch_run; run after
+     phase 15, whose K4 graph trace once lost a kernel record with phase
+     16 run just before it; its launches are added to the kernels line):
+     phase 13's records on a fresh RS(12,4) fabric at phase 11's
+     shape, one shuffled, CRC-verified epoch of DTensor batches at depth 4
+     with 1, 2 and 4 fetch workers in turns (1, 2, 4, 4, 2, 1), each the
+     same (epoch, step, ids) and each batch held against its records on
+     the card (the K2 launches on the dataload-fetch threads); with the
+     span log (sample rate 1) and a StructuredTraceLog on every storage
+     service, the epoch at 4 workers again and a 64 MiB file written at 1
+     MiB stripes: one dataload.fetch trace a batch, every stripe in the
+     StorageEventTrace rows; CheckWorker (no target offlined) and
+     DumpWorker (its chunk records equal to the stored chunks) on every
+     node, the meta scan's inodes equal to the MetaStore's tree; the file
+     read in 1 MiB reads with readahead off and on, healthy and with the
+     first node failed (K1 decodes, on the prefetch threads with
+     readahead), every byte checked, readahead hits above 0; no fetch,
+     readahead or fan-out worker alive after each close; logs in a
+     temporary directory. The same sequence at TRAIN_SMALL's records and
+     a 4 MiB file on the card and on the CPU must give equal records;
+     after phase 15 the epoch at 4 workers again under torch.profiler.
+Phases 7-14 and 16 are the main path: every kernel count is set to 0 just
 before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
@@ -136,19 +157,22 @@ the swap scorer; the full-Gram score_batch is its check).
 ``python3 chip_smoke.py --fold-variants`` instead builds the kernels and
 times K4's launch plan varied (fold_variants); ``--kvcache`` builds them
 and runs phase 12 alone, with its traced run; ``--ckpt`` builds them and
-runs phase 13 alone, with its traced run.
+runs phase 13 alone, with its traced run; ``--fetch`` builds them and
+runs phase 16 alone, with its traced run.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import json
 import socket
 import subprocess
 import sys
+import threading
 import time
 from datetime import timedelta
 from pathlib import Path
@@ -3244,6 +3268,348 @@ def fold_variants(dev) -> dict:
     return out
 
 
+# -- phase 16 ----------------------------------------------------------------
+# Phase 13's records (4,096 of 8,192 int32 tokens, 32 KiB each, in 4 files;
+# global batch 64 on the one-rank (dp, chain) mesh) on a fresh RS(12,4)
+# fabric at phase 11's shape, fetched at depth 4 by 1, 2 and 4 workers, in
+# turns (1, 2, 4, 4, 2, 1); a 64 MiB file at 1 MiB stripes read in 1 MiB
+# sequential reads with readahead off and on (the client's defaults: 4 MiB
+# windows on 2 workers), healthy and with the first node failed. The CPU
+# route runs TRAIN_SMALL's records and a 4 MiB file.
+FETCH_WORKERS, FETCH_DEPTH = (1, 2, 4, 4, 2, 1), 4
+FETCH_FULL_MIB, FETCH_SMALL_MIB = 64, 4
+FETCH_THREADS = ("dataload-fetch", "prefetch-", "client-")
+
+
+def require_no_workers(what: str) -> None:
+    """No fetch, readahead or fan-out worker is left alive: each is joined
+    with a bound first (a pool's workers leave after its bounded join)."""
+    for t in threading.enumerate():
+        if t.name.startswith(FETCH_THREADS):
+            t.join(10)
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(FETCH_THREADS) and t.is_alive()]
+    require(not alive, f"{what}: workers {alive} alive after close")
+
+
+def fetch_run(dev, data: dict, mesh, tmp: Path, body: bytes,
+              trace: bool = False, digest: bool = False) -> dict:
+    """Phase 16 on a fresh RS(12,4) fabric on ``dev``: (1) the records
+    packed into record files, then one shuffled, CRC-verified epoch of
+    DTensor batches on ``mesh`` at each of FETCH_WORKERS, every batch's
+    local tensor held against its records on ``dev``; (2) with the span
+    log and a StructuredTraceLog on every storage service, the epoch at 4
+    workers again and ``body`` written as one file; (3) CheckWorker and
+    DumpWorker on every node, and the meta scans; (4) the file read in 1
+    MiB reads with readahead off and on, healthy, then with the first node
+    failed. With ``trace`` it runs only step 1's packing and one epoch at 4
+    workers, under torch.profiler. Returns the record (batches' ids, with
+    ``digest`` their sha256; span and event counts, dumps, scans, reads'
+    sha256), each
+    request's host time (with ``trace`` its device time), the stalls, the
+    log format and the stage percentiles."""
+    import hashlib
+    from unittest import mock
+
+    from tpu3fs_torch.analytics import assemble, spans
+    from tpu3fs_torch.analytics.trace import (SerdeObjectReader,
+                                              StructuredTraceLog,
+                                              read_records)
+    from tpu3fs_torch.client import FileIoClient
+    from tpu3fs_torch.dataload import (DataLoader, LoaderConfig,
+                                       PackedDataset, RecordFileWriter)
+    from tpu3fs_torch.fabric import Fabric, SystemSetupConfig
+    from tpu3fs_torch.meta import scan
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.ops.stripe import StripeCodec
+    from tpu3fs_torch.storage.craq import StorageEventTrace
+    from tpu3fs_torch.storage.workers import CheckWorker, DumpWorker
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tokens = data["tokens"]
+    rec, requests, stall, info = {}, {}, {}, {}
+
+    def request(name, fn):
+        return timed_request(requests, name, fn, dev, trace)
+
+    fab = None
+    try:
+        with deterministic(16, step_clock=True) as clock:
+            fab = Fabric(SystemSetupConfig(
+                num_storage_nodes=FAB_NODES, num_chains=FAB_CHAINS,
+                chunk_size=MIB, ec_k=K, ec_m=M), device=dev)
+            fio = fab.file_client()
+            fab.meta.mkdirs("/data", recursive=True)
+            per = data["records"] // data["files"]
+            paths = [f"/data/tokens{i}.rec" for i in range(data["files"])]
+            for i, path in enumerate(paths):
+                w = RecordFileWriter(fab.meta, fio, path, num_records=per)
+                for r in data["host"][i * per:(i + 1) * per]:
+                    w.append(r)
+                w.commit()
+            ds = PackedDataset(fab.meta, fio, paths)
+            cfg = dict(global_batch=data["batch"], seed=5, dtype="<i4",
+                       sample_shape=(SEQ_TOKENS,), depth=FETCH_DEPTH,
+                       epochs=1)
+
+            def check(b):
+                local = b.data.to_local()
+                require(isinstance(b.data, DTensor) and tuple(b.data.shape)
+                        == (data["batch"], SEQ_TOKENS)
+                        and b.data.placements == (Shard(0), Replicate())
+                        and local.device == tokens.device and torch.equal(
+                            local, tokens[torch.tensor(b.ids,
+                                                       device=tokens.device)]),
+                        f"batch {b.step}: its tokens differ from the records")
+                return (b.epoch, b.step, b.ids, hashlib.sha256(
+                    local.cpu().numpy().tobytes()).hexdigest()
+                    if digest else None)
+
+            def epoch(workers, key):
+                with DataLoader(ds, LoaderConfig(workers=workers, **cfg),
+                                mesh=mesh) as ld:
+                    out = [check(b) for b in ld]
+                    (stall[key],) = ld._stall_ms.collect(0.0)
+                require_no_workers(f"the epoch at {workers} workers")
+                return out
+
+            # 1: the epoch at each worker count, in turns
+            runs = FETCH_WORKERS[2:3] if trace else FETCH_WORKERS
+            for turn, w in enumerate(runs):
+                key = f"epoch_w{w}_{'ab'[turn >= len(runs) // 2]}"
+                got = request(key, lambda: epoch(w, key))
+                rec.setdefault("epoch", got)
+                require(got == rec["epoch"], f"{key}: its batches differ "
+                        "from the first epoch's")
+            ids = sorted(i for _, _, b, _ in rec["epoch"] for i in b)
+            require(ids == list(range(data["records"])),
+                    "the epoch did not cover every record once")
+            if trace:
+                return {"record": rec, "requests": requests}
+            # 2: spans and storage events for an epoch and a file write
+            clock.advance()
+            old_tracer = spans._TRACER
+            spans._TRACER = spans.Tracer().configure(
+                service="smoke", node=0, sample_rate=1.0,
+                directory=str(tmp / "spans"))
+            events = StructuredTraceLog("storage-event", str(tmp / "events"))
+            for node in fab.nodes.values():
+                node.service.set_trace_log(events)
+            try:
+                require(request("epoch_w4_spans",
+                                lambda: epoch(4, "epoch_w4_spans"))
+                        == rec["epoch"], "the traced epoch differs")
+                res = fab.meta.create("/big", flags=OpenFlags.WRITE |
+                                      OpenFlags.CREATE, client_id="smoke")
+                request("write_file", lambda: fio.write(res.inode, 0, body))
+                big = fab.meta.close(res.inode.id, res.session_id)
+            finally:
+                spans._TRACER.flush()
+                span_paths = spans._TRACER.span_paths
+                spans._TRACER = old_tracer
+                for node in fab.nodes.values():
+                    node.service.set_trace_log(None)
+                events.flush()
+            rows = assemble.load_spans([str(tmp / "spans")])
+            trees = assemble.assemble_traces(rows)
+            rec["fetch_traces"] = sum(
+                1 for t in trees.values()
+                if t.root is not None and t.root["op"] == "dataload.fetch")
+            require(rec["fetch_traces"] == len(rec["epoch"]),
+                    f"{rec['fetch_traces']} dataload.fetch traces for "
+                    f"{len(rec['epoch'])} batches")
+            ev = SerdeObjectReader(StorageEventTrace).read(events.paths)
+            rec["file_event_rows"] = sorted(
+                (e.chunk_index, e.length) for e in ev
+                if e.file_id == big.id and e.length)
+            require({c for c, _ in rec["file_event_rows"]}
+                    == set(range(len(body) // MIB)), "a chunk of the written file "
+                    "has no StorageEventTrace row")
+            info["format"] = sorted({Path(p).suffix for p in
+                                     span_paths + events.paths})
+            # the fetch and the EC write emit op spans only: stage spans
+            # come from CRAQ updates, chain-encode hops and KV txns
+            info["stage_percentiles"] = assemble.stage_percentiles(rows)
+            info["span_ops"] = dict(sorted(collections.Counter(
+                r["op"] for r in rows).items()))
+            fetch_us = sorted(t.root["dur_us"] for t in trees.values()
+                              if t.root is not None
+                              and t.root["op"] == "dataload.fetch")
+            info["fetch_root_us"] = {
+                q: fetch_us[min(len(fetch_us) - 1, int(q * len(fetch_us)))]
+                for q in (0.5, 0.99)}
+            # 3: maintenance passes and the meta scans
+            dumped = []
+            for node_id, node in sorted(fab.nodes.items()):
+                require(CheckWorker(node.service).run_once() == 0,
+                        f"CheckWorker offlined a target of node {node_id}")
+                for path in DumpWorker(node.service, str(tmp / "dumps"),
+                                       node_id=node_id).run_once():
+                    dumped += [((r["file_id"], r["chunk_index"]),
+                                r["committed_ver"], r["length"],
+                                r["checksum"]) for r in read_records(path)]
+            stored = fabric_stored(fab)
+            require(sorted(dumped) == sorted(
+                row[:2] + (row[3], row[4]) for rows_ in stored.values()
+                for row in rows_), "DumpWorker's chunk records differ from "
+                "the fabric's stored chunks")
+            rec["dumped"] = sorted(dumped)
+            rec["scan_inodes"] = sorted(i.id for i in scan.scan_inodes(
+                fab.meta.engine))
+            walked, todo = [fab.meta.stat("/").id], ["/"]
+            while todo:
+                d = todo.pop()
+                for ent in fab.meta.list_dir(d):
+                    p = d.rstrip("/") + "/" + ent.name
+                    walked.append(ent.inode_id)
+                    if fab.meta.stat(p).is_dir():
+                        todo.append(p)
+            require(rec["scan_inodes"] == sorted(walked), "the meta scan's "
+                    "inodes differ from the MetaStore's")
+            rec["namespace"] = scan.namespace_stats(fab.meta.engine)
+            # 4: sequential 1 MiB reads, readahead off and on; healthy,
+            # then the first node failed (K1 decodes)
+            decoders = []
+            reconstruct = StripeCodec.reconstruct_batch
+
+            def spy(self, *a, **kw):
+                decoders.append(threading.current_thread().name)
+                return reconstruct(self, *a, **kw)
+
+            def read_file(name, prefetch):
+                client = FileIoClient(fab.storage_client(),
+                                      prefetch=prefetch)
+                try:
+                    got = request(name, lambda: b"".join(
+                        client.read(big, off, MIB)
+                        for off in range(0, len(body), MIB)))
+                    pf = client.prefetcher
+                    if prefetch:
+                        info[name] = {"hits": pf.hits._value,
+                                      "misses": pf.misses._value,
+                                      "failures": pf.failures._value}
+                        require(pf.hits._value > 0 and
+                                pf.failures._value == 0,
+                                f"{name}: readahead {info[name]}")
+                finally:
+                    client.close()
+                    client.storage.close()
+                require_no_workers(name)
+                require(got == body, f"{name}: the bytes read differ")
+                rec.setdefault("reads", []).append(
+                    (name, hashlib.sha256(got).hexdigest()))
+
+            read_file("read_plain", False)
+            read_file("read_readahead", True)
+            fab.fail_node(sorted(fab.nodes)[0])
+            with mock.patch.object(StripeCodec, "reconstruct_batch", spy):
+                read_file("read_degraded_plain", False)
+                del decoders[:]
+                read_file("read_degraded_readahead", True)
+            require(any(n.startswith("prefetch-") for n in decoders),
+                    f"no degraded decode ran on a readahead thread "
+                    f"({sorted(set(decoders))})")
+            info["decode_threads"] = sorted(set(decoders))
+        return {"record": rec, "requests": requests, "stall": stall,
+                "info": info}
+    finally:
+        if fab is not None:
+            for node in fab.nodes.values():
+                node.service.stop_workers()
+
+
+def fetch(dev, full: dict):
+    """Concurrent fetch, readahead and the trace sink on the card: the
+    sequence at small depth on the card (also the warm-up), then at full
+    size (the main path), then at small depth on the CPU, whose record
+    must equal the card's. Logs in a temporary directory. Returns the
+    main run's launch counts and the run for ``fetch_shares``."""
+    import tempfile
+
+    t0 = phase("phase 16: concurrent fetch, readahead and the trace sink")
+    small = train_data(dev, TRAIN_SMALL)
+    bodies = {n: rand_u8((n * MIB,), 1616 + n, dev).cpu().numpy().tobytes()
+              for n in (FETCH_SMALL_MIB, FETCH_FULL_MIB)}
+    with tempfile.TemporaryDirectory() as tmp, one_rank_group(dev) as mesh:
+        tmp = Path(tmp)
+        card_small = fetch_run(dev, small, mesh, tmp / "small",
+                               bodies[FETCH_SMALL_MIB], digest=True)
+        zero_counts()
+        card = fetch_run(dev, full, mesh, tmp / "full",
+                         bodies[FETCH_FULL_MIB])
+        counts = read_counts()
+    require_main_path("concurrent fetch, readahead and the trace sink",
+                      counts, ("gf2_matmul", "crc32c_blocks"))
+    for name in ("read_degraded_plain", "read_degraded_readahead"):
+        require(card["requests"][name]["launches"].get("gf2_matmul", 0) > 0,
+                f"{name}: no K1 decode launched")
+    cpu_dev = torch.device("cpu")
+    t_cpu = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            one_rank_group(cpu_dev) as mesh:
+        cpu = fetch_run(cpu_dev, on_cpu(small), mesh, Path(tmp),
+                        bodies[FETCH_SMALL_MIB], digest=True)
+    card["cpu_route_s"] = time.perf_counter() - t_cpu
+    for key, got in cpu["record"].items():
+        require(got == card_small["record"][key],
+                f"the CPU run's {key} differs from the card's")
+    req = card["requests"]
+    e2e = {}
+    for key, st in card["stall"].items():
+        if key in req:
+            e2e[key] = {
+                "samples_s": full["records"] / (req[key]["host_ms"] / 1e3),
+                "stall_ms": {k: getattr(st, k) for k in (
+                    "count", "mean", "p50", "p99", "max")},
+                "K2": req[key]["launches"].get("crc32c_blocks", 0)}
+    for name in ("read_plain", "read_readahead", "read_degraded_plain",
+                 "read_degraded_readahead", "write_file"):
+        e2e[name] = {"MiB_s": FETCH_FULL_MIB / (req[name]["host_ms"] / 1e3),
+                     "K1": req[name]["launches"].get("gf2_matmul", 0),
+                     **card["info"].get(name, {})}
+    card["e2e"] = e2e
+    info = card["info"]
+    log(json.dumps({"fetch": e2e, "format": info["format"],
+                    "span_ops": info["span_ops"],
+                    "fetch_root_us": info["fetch_root_us"],
+                    "stage_percentiles": info["stage_percentiles"],
+                    "decode_threads": info["decode_threads"],
+                    "card": card_line()}))
+    log(f"fetch: launches {counts}, CPU route {card['cpu_route_s']:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return counts, card
+
+
+def fetch_shares(dev, run: dict, full: dict) -> None:
+    """The epoch at 4 workers again on the card under torch.profiler for
+    its device share, beside the main path's host times and launches.
+    Runs after phase 15's traces, as ``storage_shares`` does."""
+    import tempfile
+
+    t0 = phase("phase 16 (continued): the epoch's device share")
+    with tempfile.TemporaryDirectory() as tmp, one_rank_group(dev) as mesh:
+        traced = fetch_run(dev, full, mesh, Path(tmp), b"", trace=True)
+    require(traced["record"]["epoch"] == run["record"]["epoch"],
+            "the traced epoch differs from the main path's")
+    rows = {name: dict(row, traced=traced["requests"].get(name, {}))
+            for name, row in run["requests"].items()}
+    log(json.dumps({"fetch_requests": rows, "card": card_line(),
+                    "cpu_route_s": run["cpu_route_s"],
+                    "shapes": "4,096 records of 8,192 int32 tokens in 4 "
+                              "files, global batch 64, depth 4, workers 1, "
+                              "2 and 4; a 64 MiB file read in 1 MiB reads; "
+                              "RS(12,4) over 4 nodes and 2 chains, 1 MiB "
+                              "chunks"}))
+    for name, row in rows.items():
+        tr = row["traced"]
+        shares = (f"traced host {tr['host_ms']:10.3f} ms, share "
+                  f"{tr['device_share']:.4f}" if tr else "not traced")
+        log(f"  {name:<24} host {row['host_ms']:10.3f} ms  K1 "
+            f"{row['launches'].get('gf2_matmul', 0):5d} K2 "
+            f"{row['launches'].get('crc32c_blocks', 0):6d}  {shares}")
+    log(f"fetch shares ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
@@ -3271,6 +3637,11 @@ def main() -> int:
         _, train_card, train_full = train(dev)
         train_shares(dev, train_card, train_full)
         return 0
+    if sys.argv[1:] == ["--fetch"]:
+        full = train_data(dev, TRAIN_FULL)
+        _, fetch_card = fetch(dev, full)
+        fetch_shares(dev, fetch_card, full)
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -3288,10 +3659,17 @@ def main() -> int:
     paths["train"], train_card, train_full = train(dev)
     paths["placement"] = placement(dev, Compare())
     kernels = times(dev, paths, cmps)
+    # after phase 15: with phase 16 run just before it, K4's graph trace
+    # once lost one of its 30 kernel records
+    paths["fetch"], fetch_card = fetch(dev, train_full)
+    for row in kernels:
+        row["launches_by_path"]["fetch"] = paths["fetch"][row["name"]]
+        row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)
     serving_shares(dev, served)
     kv_shares(dev, kv_card, kv_data)
     train_shares(dev, train_card, train_full)
+    fetch_shares(dev, fetch_card, train_full)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

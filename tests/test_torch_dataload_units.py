@@ -5,7 +5,8 @@ CLI (record files, coalescing, the Feistel shuffle, dp sharding, the
 pipeline, resume, the ``dataload`` QoS class, recorders, transforms and
 epoch callbacks, the adaptive gap). Then the port's own rules: one K2
 launch a verified ``read_batch``, a record-file writer checksumming one
-run a call, no concurrent fetch workers, the card by default.
+run a call, a fetch worker's CRC error raised on the consumer, the card
+by default.
 Tolerance 0.
 
 Left out of ``tests/test_dataload.py``:
@@ -13,12 +14,13 @@ Left out of ``tests/test_dataload.py``:
 ``test_admin_cli_pack_and_inspect`` (the pack and admin CLIs are not
 ported), and ``TestDpSharding.test_mesh_global_array_content_and_sharding``
 (a ``jax.Array``: ``test_torch_dataload_mesh.py`` holds its counterpart).
-No case there sets ``LoaderConfig.workers`` above 1, so none is left out
-for the port's missing concurrent fetch (ROADMAP M6a), and no case here
-covers concurrent fetch in either package."""
+No case there sets ``LoaderConfig.workers`` above 1:
+``test_torch_fetch_parity.py`` holds the concurrent fetch of both
+packages against each other."""
 
 import importlib
 import math
+import threading
 import time
 from types import SimpleNamespace
 from unittest import mock
@@ -633,9 +635,41 @@ def test_corrupt_record_counts_a_crc_error():
 
 
 def test_concurrent_fetch_workers_raise():
+    """Concurrent fetch workers run in the port (``workers`` > 1 no longer
+    raises NotImplementedError): a corrupted record found on a
+    ``dataload-fetch`` thread raises DATALOAD_CORRUPT on the consumer and
+    counts one ``dataload.crc_err``, and no fetch worker outlives the
+    loader."""
     pkg = _pkg("tpu3fs_torch")
-    with pytest.raises(NotImplementedError, match="M6a"):
-        pkg.dl.DataLoader(None, pkg.dl.LoaderConfig(workers=2, depth=2))
+    f = pkg.fabric.Fabric(pkg.fabric.SystemSetupConfig(
+        num_storage_nodes=3, num_chains=2, num_replicas=2,
+        chunk_size=CHUNK), **pkg.dev)
+    try:
+        f.meta.mkdirs("/data", recursive=True)
+        ds, recs = _dataset(pkg, f, n=16, size=512, files=1)
+        with _loader(pkg, ds, global_batch=4, seed=0, epochs=1, depth=4,
+                     workers=4) as ld:
+            assert sorted(i for b in ld for i in b.ids) == list(range(16))
+        off, _ = ds.files[0].extent(5)
+        fio = f.file_client()
+        fio.write(f.meta.stat("/data/ds0.rec"), off, b"\x00\x01")
+        ld = _loader(pkg, pkg.dl.PackedDataset(
+            f.meta, fio, ["/data/ds0.rec"]), global_batch=16, seed=0,
+            epochs=1, depth=4, workers=4)
+        try:
+            with pytest.raises(pkg.result.FsError) as ei:
+                next(ld)
+        finally:
+            ld.close()
+        assert _code(pkg, ei, "DATALOAD_CORRUPT")
+        assert ld._crc_err._value == 1
+    finally:
+        f.close()
+    for t in threading.enumerate():
+        if t.name.startswith("dataload-fetch"):
+            t.join(10)
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("dataload-fetch")]
 
 
 def test_encode_record_file_defaults_to_the_card():

@@ -273,11 +273,41 @@ def _cpu_fabric(**kw):
 
 
 def test_file_client_prefetch_raises():
-    fab = _cpu_fabric()
+    """Readahead runs in the port (``prefetch=True`` no longer raises
+    NotImplementedError). A readahead whose fetch raises installs nothing
+    and is counted in ``failures``; the reads go the normal path and stay
+    exact; closing the client joins its ``prefetch`` workers."""
     from tpu3fs_torch.client import FileIoClient
+    from tpu3fs_torch.meta.store import OpenFlags
 
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        FileIoClient(fab.storage_client(), prefetch=True)
+    fab = _cpu_fabric(num_storage_nodes=3, num_chains=2, num_replicas=2,
+                      chunk_size=64 << 10)
+    data = bytes(range(256)) * 1024
+    res = fab.meta.create("/pf", flags=OpenFlags.WRITE, client_id="t")
+    fab.file_client().write(res.inode, 0, data)
+    fab.meta.close(res.inode.id, res.session_id, length_hint=len(data),
+                   wrote=True)
+    inode = fab.meta.stat("/pf")
+    fio = FileIoClient(fab.storage_client(), prefetch=True)
+    pf = fio.prefetcher
+
+    def broken(*_):
+        raise RuntimeError("planted readahead failure")
+
+    pf._fetch = broken
+    try:
+        got = b"".join(fio.read(inode, off, 16 << 10)
+                       for off in range(0, len(data), 16 << 10))
+        deadline = time.monotonic() + 5
+        while pf._inflight and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert got == data
+        assert pf.failures._value > 0 and pf.hits._value == 0
+        assert pf.cached_bytes() == 0
+    finally:
+        fio.close()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("prefetch-") and t.is_alive()]
 
 
 @pytest.mark.parametrize("option, error, match", [

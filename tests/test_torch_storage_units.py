@@ -220,13 +220,33 @@ def test_unported_parts_raise():
     for kind in ("native", "auto"):
         with pytest.raises(ValueError, match="M6b"):
             ttarget.StorageTarget(1, 1, engine=kind, device="cpu")
-    with pytest.raises(NotImplementedError, match="M6a"):
-        spans.Tracer().configure(directory="/nonexistent")
     # a target on another device than its service's
     with pytest.raises(ValueError, match="service on cpu"):
         svc.add_target(ttarget.StorageTarget(1, 1, device="meta"))
     with pytest.raises(ValueError, match="service on cpu"):
         EcResyncWorker(svc, lambda *a: None, device="meta")
+
+
+def test_span_log_sink_takes_a_directory(tmp_path):
+    """The span sink is ported (``configure(directory=...)`` no longer
+    raises NotImplementedError): sampled spans stream into the directory
+    and read back through ``analytics.trace``."""
+    from tpu3fs_torch.analytics.trace import read_records
+
+    t = spans.Tracer().configure(service="storage", node=7, sample_rate=1.0,
+                                 directory=str(tmp_path / "spans"))
+    old, spans._TRACER = spans._TRACER, t
+    try:
+        with spans.root_span("storage.write", nbytes=5):
+            with spans.span("storage.write", "commit"):
+                pass
+        t.flush()
+    finally:
+        spans._TRACER = old
+    assert t.enabled and len(t.span_paths) == 1
+    rows = read_records(t.span_paths[0])
+    assert sorted((r["op"], r["stage"], r["node"]) for r in rows) == [
+        ("storage.write", "", 7), ("storage.write", "commit", 7)]
 
 
 def test_entry_points_default_to_the_card():

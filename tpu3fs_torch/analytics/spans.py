@@ -1,8 +1,8 @@
 """Distributed request tracing: span-stamped RPCs + stage-level timings.
 
-The port's own copy of ``tpu3fs/analytics/spans.py``. Its span sink,
-``analytics/trace.py``, is not ported yet (ROADMAP M6a): configuring a
-log directory raises ``NotImplementedError``; spans stay in process.
+The port's own copy of ``tpu3fs/analytics/spans.py``. Its span sink is
+the port's ``analytics/trace.py``: ``configure(directory=...)`` streams
+the spans there (Parquet where ``pyarrow`` imports, NPZ otherwise).
 
 Re-expresses the reference's three-way instrumentation (monitor latency
 families on every op, a StructuredTraceLog plugged into the storage write
@@ -220,9 +220,11 @@ class Tracer:
                                    if slow_op_ms and slow_op_ms > 0
                                    else float("inf"))
             if directory is not None and directory != self._log_dir:
-                raise NotImplementedError(
-                    "the span log sink (analytics/trace.py) is not ported "
-                    "yet: ROADMAP M6a")
+                from tpu3fs_torch.analytics.trace import StructuredTraceLog
+
+                self._log = StructuredTraceLog("spans", directory,
+                                               flush_rows=flush_rows)
+                self._log_dir = directory
             if enabled is not None:
                 self.enabled = bool(enabled) and self._log is not None
             elif self._log is not None:

@@ -7,8 +7,9 @@ Also provides the precise-length callback used by meta close/fsync
 (ref src/meta/components/FileHelper.cc queryLastChunk).
 
 The port's own copy of ``tpu3fs/client/file_io.py``. Its stripes run
-through the ``StorageClient``'s device. Readahead (``prefetch=``) is not
-ported and raises.
+through the ``StorageClient``'s device. Readahead (``prefetch=``) runs on
+the port's ``client/prefetch.py``: its windows are fetched on worker
+threads, where a degraded window's decodes are K1 launches on the card.
 """
 
 from __future__ import annotations
@@ -47,9 +48,13 @@ class FileIoClient:
         self._storage = storage
         self._prefetch = None
         if prefetch:
-            raise NotImplementedError(
-                "readahead needs client/prefetch.py, which the port has not "
-                "taken yet (ROADMAP M6c); pass prefetch=False")
+            from tpu3fs_torch.client.prefetch import (
+                PrefetchConfig,
+                ReadaheadPrefetcher,
+            )
+
+            cfg = prefetch if isinstance(prefetch, PrefetchConfig) else None
+            self._prefetch = ReadaheadPrefetcher(self._fetch_window, cfg)
 
     @property
     def storage(self) -> StorageClient:

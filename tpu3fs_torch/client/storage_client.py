@@ -166,6 +166,9 @@ class StorageClient:
         self._channels = UpdateChannelAllocator()
         self._rr = itertools.count()
         self._rng = random.Random(seed)
+        self._pool = None  # lazy batch fan-out pool (multi-node batches)
+        self._pool_mu = threading.Lock()
+        self._pool_finalizer = None
         # EC data-plane health/throughput recorders (docs/ec.md)
         from tpu3fs_torch.monitor.recorder import (
             CounterRecorder,
@@ -207,9 +210,18 @@ class StorageClient:
             health=self._health)
 
     def close(self) -> None:
-        """Release what the messenger holds for this client. (The JAX
-        package's client also stops its fan-out pool here; the port has
-        no pool, see ``_fan_out``.)"""
+        """Release the fan-out pool's worker threads (a bounded join) and
+        what the messenger holds for this client. Explicit close is best;
+        a weakref finalizer backstops callers that churn clients without
+        closing (per-client threads would accumulate in long-lived
+        processes)."""
+        with self._pool_mu:
+            pool, self._pool = self._pool, None
+            fin, self._pool_finalizer = self._pool_finalizer, None
+        if fin is not None:
+            fin.detach()
+        if pool is not None:
+            pool.shutdown(wait=True)
         # USRBIO shm rings ride the messenger (rpc/services.py): an
         # orderly client close deregisters them with the serving process
         # and unlinks the client-owned segments now, not at interpreter
@@ -238,11 +250,21 @@ class StorageClient:
             for item in items:
                 fn(item)
             return
-        # the socket transports declare parallel_fanout; the port has none
-        # yet, and its worker pool (utils/executor.py) comes with them
-        raise NotImplementedError(
-            "parallel fan-out needs utils/executor.py's WorkerPool, which "
-            "the port has not taken yet (ROADMAP M6a)")
+        with self._pool_mu:
+            if self._pool is None:
+                import weakref
+
+                from tpu3fs_torch.utils.executor import WorkerPool
+
+                self._pool = WorkerPool(f"client-{self.client_id}",
+                                        num_workers=4, queue_cap=64)
+                # reclaim worker threads when the client is GC'd without
+                # close(); args hold the POOL (not self), so the finalizer
+                # never keeps the client alive
+                self._pool_finalizer = weakref.finalize(
+                    self, WorkerPool.shutdown, self._pool, False)
+            pool = self._pool
+        pool.map(fn, items)
     def _chain(self, chain_id: int) -> ChainInfo:
         chain = self._routing().chains.get(chain_id)
         if chain is None:

@@ -31,8 +31,10 @@ The port's own copy of ``tpu3fs/dataload/loader.py``. With a
 ``DeviceMesh`` (one process is one rank) a batch lands as a DTensor of
 shape (global_batch, *sample_shape), ``Shard(0)`` on the ``dp`` axis and
 ``Replicate`` on the others, built from this rank's microbatch copied to
-its device. Concurrent fetch workers (``workers`` > 1) need
-``utils/executor.py``, which the port has not taken yet: they raise.
+its device. With ``workers`` > 1 the fetches (the reads, the one K2
+launch a batch and the copy to the card) run on a ``WorkerPool`` of the
+port's ``utils/executor.py``; each hands out a batch whose copy has
+finished, so the consumer's stream never sees a half-copied batch.
 """
 
 from __future__ import annotations
@@ -149,10 +151,6 @@ class DataLoader:
         cfg = self.config
         if cfg.global_batch <= 0:
             raise _err(Code.INVALID_ARG, "global_batch must be positive")
-        if min(cfg.workers, max(1, cfg.depth)) > 1:
-            raise NotImplementedError(
-                "concurrent fetch workers need utils/executor.py, which the "
-                "port has not taken yet (ROADMAP M6a); pass workers=1")
         self._mesh = mesh
         self._dp_axis = dp_axis
         if mesh is not None:
@@ -304,28 +302,41 @@ class DataLoader:
             epoch, step = epoch + 1, 0
 
     def _produce(self) -> None:
-        """Fetch window: keep up to ``depth`` batches outstanding
-        (delivered + in flight), fetching one at a time; DELIVERY stays
-        strictly in step order, so the consumer (and the resume cursor)
-        never see reordering."""
+        """Sliding fetch window: keep up to ``depth`` batches outstanding
+        (delivered + in flight), fetching up to min(workers, depth) of
+        them concurrently; DELIVERY stays strictly in step order, so the
+        consumer (and the resume cursor) never see reordering."""
         cfg = self.config
+        workers = max(1, min(cfg.workers, max(1, cfg.depth)))
+        pool = None
+        if workers > 1:
+            from tpu3fs_torch.utils.executor import WorkerPool
+
+            pool = WorkerPool("dataload-fetch", num_workers=workers,
+                              queue_cap=max(2, cfg.depth))
         try:
             gen = self._positions()
-            pending: List[tuple] = []  # positions to fetch
+            pending: List[object] = []  # Futures (pool) or position tuples
             exhausted = False
             while not self._stop.is_set():
                 while not exhausted and len(pending) < max(1, cfg.depth) \
+                        and (pool is None or len(pending) < workers) \
                         and self.buffered_bytes() \
                         < cfg.max_buffered_bytes:
                     pos = next(gen, None)
                     if pos is None:
                         exhausted = True
                         break
-                    pending.append(pos)
-                    break  # fetch-push one at a time
+                    pending.append(pool.submit(self._fetch, *pos)
+                                   if pool is not None else pos)
+                    if pool is None:
+                        break  # sync mode: fetch-push one at a time
                 if not pending:
                     break
-                if not self._push(self._fetch(*pending.pop(0))):
+                head = pending.pop(0)
+                batch = head.get() if pool is not None \
+                    else self._fetch(*head)
+                if not self._push(batch):
                     return
         except BaseException as e:  # delivered on the consumer's next()
             with self._cond:
@@ -335,6 +346,11 @@ class DataLoader:
             with self._cond:
                 self._finished = True
                 self._cond.notify_all()
+        finally:
+            if pool is not None:
+                # a bounded join: the fetches in flight finish, and no
+                # worker outlives the producer holding a batch on the card
+                pool.shutdown(wait=True)
 
     def _push(self, batch: Batch) -> bool:
         """Bounded hand-off: at most ``depth`` batches AND (beyond the

@@ -103,9 +103,20 @@ def _build(sources, target: Path) -> None:
         os.replace(tmp_so, target)  # atomic: a reader never sees half a file
 
 
-@functools.lru_cache(maxsize=1)
+_library_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first when its hash is new."""
+    """The loaded kernel library, built first when its hash is new. The
+    first launch may come from several threads at once (the loader's fetch
+    workers, the readahead): the lock makes one of them build and load,
+    and the others wait for it and take its library."""
+    with _library_lock:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
@@ -120,6 +131,10 @@ def library() -> ctypes.CDLL:
     lib.tpu3fs_error_string.argtypes = [ctypes.c_int]
     lib.tpu3fs_error_string.restype = ctypes.c_char_p
     return lib
+
+
+library.cache_info = _load.cache_info
+library.cache_clear = _load.cache_clear
 
 
 def build_log() -> str:

@@ -1,6 +1,6 @@
-"""File metadata over the KV store (``types``, ``store``): the port's own
-copies of those modules of ``tpu3fs/meta/``. ``scan`` and ``distributor``
-are not ported (ROADMAP M6a)."""
+"""File metadata over the KV store (``types``, ``store``, ``scan``): the
+port's own copies of those modules of ``tpu3fs/meta/``. ``distributor`` is
+not ported (ROADMAP M6a-2)."""
 
 from tpu3fs_torch.meta.types import (  # noqa: F401
     Acl,

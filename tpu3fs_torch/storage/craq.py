@@ -2107,6 +2107,9 @@ class StorageService:
         if self.stopped:
             return [UpdateReply(Code.RPC_PEER_CLOSED, message="node stopped")
                     for _ in range(n)]
+        import time as _time
+
+        t0 = _time.perf_counter()
         replies: List[Optional[UpdateReply]] = [None] * n
         # group by (target, chain): one engine crossing carries ONE
         # chain_version, so mixed-chain wire batches can't cross-stamp
@@ -2132,7 +2135,31 @@ class StorageService:
             for i in idxs:
                 if replies[i] is None:
                     replies[i] = self.write_shard(reqs[i])
+        self._trace_shard_writes(reqs, replies, t0)
         return replies
+
+    def _trace_shard_writes(self, reqs: List[ShardWriteReq],
+                            replies: List[UpdateReply], t0: float) -> None:
+        """One StorageEventTrace row a shard install (or commit) of a
+        batch, the batch's wall amortized over its requests as
+        ``batch_write``'s rows are. The port's addition: the JAX package's
+        trace log sees CRAQ writes only, so an EC file left no row."""
+        if self._trace is None:
+            return
+        import time as _time
+
+        dt = _time.perf_counter() - t0
+        for r, out in zip(reqs, replies):
+            try:
+                self._trace.append(StorageEventTrace(
+                    ts=_time.time(), chain_id=r.chain_id,
+                    file_id=r.chunk_id.file_id,
+                    chunk_index=r.chunk_id.index,
+                    update_ver=out.update_ver, code=int(out.code),
+                    length=len(r.data) if r.data is not None else 0,
+                    latency_us=dt / len(reqs) * 1e6))
+            except Exception:
+                pass  # best-effort, as _trace_write
 
     def _batch_write_shard_target(
         self, target_id: int, reqs: List[ShardWriteReq]

@@ -1,6 +1,7 @@
-"""Host utilities (``result``, ``config``, ``fault_injection``, ``trash``):
-the port's own copies of the modules of ``tpu3fs/utils/`` that the storage
-tier and the checkpoint retention import."""
+"""Host utilities (``result``, ``config``, ``fault_injection``, ``trash``,
+``executor``, ``logging``): the port's own copies of the modules of
+``tpu3fs/utils/`` that the storage tier, the checkpoint retention, the
+loader's fetch workers and the readahead import."""
 
 from tpu3fs_torch.utils.result import (  # noqa: F401
     Code,
