@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the tpu3fs_torch data plane, chain-table placement, storage tier,
 serving stack, KV-cache tier, checkpoints, data loading, concurrent fetch,
-readahead and the trace sink on one CUDA card.
+readahead, the trace sink and the services over sockets on one CUDA card.
 
 Run from the repository root, with one card:
 
@@ -148,9 +148,33 @@ Phases, in order (any failure exits non-zero):
      readahead or fan-out worker alive after each close; logs in a
      temporary directory. The same sequence at TRAIN_SMALL's records and
      a 4 MiB file on the card and on the CPU must give equal records;
-     after phase 15 the epoch at 4 workers again under torch.profiler.
-Phases 7-14 and 16 are the main path: every kernel count is set to 0 just
-before each and read just after; every K1 and K2 launch there must be a
+     after phase 15 the epoch at 4 workers again under torch.profiler;
+ 17. the services over sockets (sockets; after phase 16, its launches
+     added to the kernels line under "sockets"): (a) mgmtd, four storage
+     apps (engine=mem, usrbio=0) and a meta app in this process on
+     run_background over loopback TCP, all on the card, the chains
+     uploaded through MgmtdAdminRpcClient (two RS(12,4) chains of 16
+     targets, 4 on each node; a CR chain of 3); a warm-up pass, then
+     phase 11's requests through MetaRpcClient, StorageClient and
+     RpcMessenger: write /a (48 stripes of 1 MiB), read, a 5,000-byte
+     overwrite, stop a node and read degraded, write while it is down,
+     an empty node back and the EC rebuild until every chain serves, a
+     chain-encoded /b, every stored shard read back and held against its
+     twin encoded on the card (4 stripes a file against encode_np and
+     crc32c_py), two files removed and collected by meta's GC, 64 chunks
+     of 256 KiB on the CR chain; (b) the same services each as its own
+     process (python -m tpu3fs_torch.bin.<name>_main --device cuda),
+     the same requests with a SIGKILL as the failure and a new process
+     as the restart, each storage process shown on the card (nvidia-smi,
+     or its device file and the mapped kernel library where nvidia-smi
+     sees another pid namespace), then phase 16's records, epochs at 1,
+     2, 4, 4, 2, 1 workers and 1 MiB reads with readahead off and on,
+     healthy and with a second process killed; every child stopped by
+     SIGTERM within 10 s, exit codes and logs checked. Host ms and
+     launches of each request; write, read, degraded-read and rebuild
+     MiB/s. (b) counts the client's launches only.
+Phases 7-14, 16 and 17 are the main path: every kernel count is set to 0
+just before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
 the swap scorer; the full-Gram score_batch is its check).
@@ -158,7 +182,8 @@ the swap scorer; the full-Gram score_batch is its check).
 times K4's launch plan varied (fold_variants); ``--kvcache`` builds them
 and runs phase 12 alone, with its traced run; ``--ckpt`` builds them and
 runs phase 13 alone, with its traced run; ``--fetch`` builds them and
-runs phase 16 alone, with its traced run.
+runs phase 16 alone, with its traced run; ``--sockets`` builds them and
+runs phase 17 alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -169,6 +194,8 @@ import collections
 import contextlib
 import itertools
 import json
+import os
+import re
 import socket
 import subprocess
 import sys
@@ -3610,6 +3637,828 @@ def fetch_shares(dev, run: dict, full: dict) -> None:
     log(f"fetch shares ({time.perf_counter() - t0:.1f} s)")
 
 
+# -- phase 17 ----------------------------------------------------------------
+SOCK_IDS = (101, 102, 103, 104)        # phase 11's four storage nodes
+SOCK_EC_CHAINS, SOCK_CR_CHAIN = (901, 902), 903
+SOCK_MGMTD, SOCK_META = 1, 201
+# MiB of the file written while a node is down, and of the one GC collects
+SOCK_W_MIB, SOCK_C_MIB = 8, 2
+SOCK_PARKED = "3600"                   # seconds: (a)'s loops never fire
+SOCK_WAIT_S = 300.0                    # the bound on any one wait
+SOCK_CHILD_STOP_S = 10.0               # SIGTERM -> exit, else killed
+
+
+def sock_wait(pred, what: str, timeout: float = SOCK_WAIT_S):
+    """Poll ``pred`` until it returns a truthy value, at most ``timeout``
+    seconds; a failed wait ends the run."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            got = pred()
+        except Exception as e:  # a service still starting: poll again
+            got, err = None, e
+        else:
+            err = None
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting "
+                                 f"for {what} (last error: {err!r})")
+        time.sleep(0.1)
+
+
+def sock_layout(admin, ids) -> None:
+    """Phase 11's chains over ``ids``, uploaded as an operator would: two
+    RS(12,4) chains of 16 targets, shard j on node ids[j % 4] (4 targets of
+    each chain a node), in chain table 1; a CR chain of 3 on the first
+    three nodes, in chain table 2."""
+    tid = 1001
+    for chain_id in SOCK_EC_CHAINS:
+        targets = []
+        for j in range(K + M):
+            admin.create_target(tid, node_id=ids[j % len(ids)])
+            targets.append(tid)
+            tid += 1
+        admin.upload_chain(chain_id, targets, ec_k=K, ec_m=M)
+    admin.upload_chain_table(1, list(SOCK_EC_CHAINS))
+    targets = []
+    for node_id in ids[:3]:
+        admin.create_target(tid, node_id=node_id)
+        targets.append(tid)
+        tid += 1
+    admin.upload_chain(SOCK_CR_CHAIN, targets)
+    admin.upload_chain_table(2, [SOCK_CR_CHAIN])
+
+
+def sock_serving(routing) -> bool:
+    return all(t.public_state.name == "SERVING"
+               for chain in routing.chains.values() for t in chain.targets)
+
+
+def sock_node_down(routing, node_id: int) -> bool:
+    """Every target of ``node_id`` is out of service in ``routing``."""
+    states = [t.public_state.name for chain in routing.chains.values()
+              for t in chain.targets
+              if routing.targets[t.target_id].node_id == node_id]
+    return bool(states) and "SERVING" not in states
+
+
+class SockInProcess:
+    """Phase 17 (a): mgmtd, four storage apps and a meta app in this
+    process on ``run_background``, over loopback TCP, all on ``dev``.
+    mgmtd runs on a step clock and the apps' loops are parked, so the run
+    drives heartbeats, mgmtd's ticks, target scans and resync rounds
+    itself, as ``Fabric.fail_node``/``resync_all`` do in phase 11."""
+
+    def __init__(self, dev):
+        self.dev, self.apps, self.nodes = dev, [], {}
+        self.clock = StepClock(step=True)
+        try:
+            self._boot()
+        except BaseException:
+            self.close()  # no app outlives a failed boot
+            raise
+
+    def _boot(self) -> None:
+        from tpu3fs_torch.bin.meta_main import MetaApp
+        from tpu3fs_torch.bin.mgmtd_main import MgmtdApp
+        from tpu3fs_torch.rpc.services import MgmtdAdminRpcClient
+
+        dev = self.dev
+        self.mgmtd = MgmtdApp(
+            ["--node-id", str(SOCK_MGMTD),
+             f"--config.tick_interval_s={SOCK_PARKED}",
+             "--config.heartbeat_timeout_s=60"],
+            clock=self.clock.time, device=dev)
+        self.mgmtd.run_background()
+        self.apps.append(self.mgmtd)
+        self.maddr = (self.mgmtd.info.hostname, self.mgmtd.info.port)
+        self.admin = MgmtdAdminRpcClient(self.maddr)
+        for node_id in SOCK_IDS:
+            self._storage(node_id)
+        sock_layout(self.admin, SOCK_IDS)
+        for app in self.nodes.values():
+            app.scan_targets()
+        self.tick()
+        self.meta_app = MetaApp(
+            self._argv(SOCK_META)
+            + [f"--config.gc_interval_s={SOCK_PARKED}"], device=dev)
+        self.meta_app.run_background()
+        self.apps.append(self.meta_app)
+        self.tick()
+        require(sock_serving(self.admin.refresh_routing()),
+                "(a): a chain is not SERVING after boot")
+        self.meta_addr = (self.meta_app.info.hostname,
+                          self.meta_app.info.port)
+
+    def _argv(self, node_id: int) -> list:
+        return ["--node-id", str(node_id), "--mgmtd", "%s:%d" % self.maddr,
+                "--heartbeat_interval", SOCK_PARKED]
+
+    def _storage(self, node_id: int):
+        from tpu3fs_torch.bin.storage_main import StorageApp
+
+        app = StorageApp(self._argv(node_id) + [
+            "--config.engine=mem", "--config.usrbio=0",
+            f"--config.target_scan_interval_s={SOCK_PARKED}",
+            f"--config.resync_interval_s={SOCK_PARKED}",
+            f"--config.check_interval_s={SOCK_PARKED}",
+            f"--config.punch_hole_interval_s={SOCK_PARKED}"],
+            device=self.dev)
+        app.run_background()
+        self.apps.append(app)
+        self.nodes[node_id] = app
+        return app
+
+    def tick(self) -> None:
+        """Heartbeats, mgmtd's chain update, heartbeats again (their
+        replies carry the new routing version to every app)."""
+        live = [a for a in self.apps[1:] if not a.stopped]
+        for app in live:
+            app.heartbeat_once()
+        self.mgmtd.mgmtd.tick()
+        for app in live:
+            app.heartbeat_once()
+
+    def fail(self, node_id: int) -> None:
+        app = self.nodes[node_id]
+        app.stop()
+        require(app.join(SOCK_CHILD_STOP_S), f"(a): node {node_id} did "
+                "not stop")
+        self.clock.advance(61.0)
+        self.tick()
+        require(sock_node_down(self.admin.refresh_routing(), node_id),
+                f"(a): node {node_id}'s targets still serve")
+
+    def restart(self, node_id: int) -> None:
+        app = self._storage(node_id)
+        app.heartbeat_once()  # a stale hb_version: fast-forwards
+        app.scan_targets()
+        self.tick()
+
+    def rebuild(self) -> int:
+        """Resync rounds on every live node until every chain serves."""
+        from tpu3fs_torch.rpc.services import RpcMessenger
+        from tpu3fs_torch.storage.ec_resync import EcResyncWorker
+        from tpu3fs_torch.storage.resync import ResyncWorker
+
+        moved = 0
+        for _ in range(12):
+            for app in self.nodes.values():
+                if app.stopped:
+                    continue
+                messenger = RpcMessenger(lambda: app.mgmtd_client.routing())
+                moved += ResyncWorker(app.service, messenger).run_once()
+                moved += EcResyncWorker(app.service, messenger,
+                                        device=self.dev).run_once()
+            self.tick()
+            if sock_serving(self.admin.refresh_routing()):
+                return moved
+        raise AssertionError("(a): the rebuild did not converge")
+
+    def gc(self) -> int:
+        return self.meta_app.run_gc()
+
+    def close(self) -> list:
+        for app in reversed(self.apps):
+            app.stop()
+        stuck = [type(a).__name__ for a in reversed(self.apps)
+                 if not a.join(SOCK_CHILD_STOP_S)]
+        return stuck
+
+
+class SockProcesses:
+    """Phase 17 (b): mgmtd, meta and the four storage nodes each in its own
+    process, started from ``python -m tpu3fs_torch.bin.<name>_main
+    --device <device>`` (never forked); their loops run on their own
+    (heartbeats, mgmtd's ticks, target scans, resync and GC). Only
+    mgmtd's port is chosen here (a socket bound to port 0, closed just
+    before); every other address is read from mgmtd's routing. Logs go to
+    ``logdir``."""
+
+    def __init__(self, logdir: Path, device: str = "cuda"):
+        self.logdir, self.device, self.procs = logdir, device, []
+        logdir.mkdir(parents=True, exist_ok=True)
+        try:
+            self._boot()
+        except BaseException:
+            self.close()  # no child outlives a failed boot
+            raise
+
+    def _boot(self) -> None:
+        from tpu3fs_torch.rpc.services import MgmtdAdminRpcClient
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.maddr = ("127.0.0.1", port)
+        self.admin = MgmtdAdminRpcClient(self.maddr)
+        self._start("mgmtd", "mgmtd_main", SOCK_MGMTD,
+                    ["--port", str(port), "--config.tick_interval_s=0.5",
+                     "--config.heartbeat_timeout_s=5"])
+        sock_wait(lambda: self.admin.refresh_routing() is not None,
+                  "mgmtd to answer")
+        t0 = time.perf_counter()
+        for node_id in SOCK_IDS:  # started together: each ~8 s to the card
+            self._storage(node_id)
+        for node_id in SOCK_IDS:
+            self.registered(node_id)
+        self.boot_s = time.perf_counter() - t0
+        sock_layout(self.admin, SOCK_IDS)
+        sock_wait(lambda: sock_serving(self.admin.refresh_routing()),
+                  "every chain to serve")
+        self._start("meta", "meta_main", SOCK_META,
+                    ["--mgmtd=%s:%d" % self.maddr, "--heartbeat_interval",
+                     "0.5", "--config.gc_interval_s=0.5"])
+        node = self.registered(SOCK_META)
+        self.meta_addr = (node.host, node.port)
+
+    def _start(self, name: str, module: str, node_id: int, args: list):
+        n = sum(1 for c in self.procs if c.node_id == node_id)
+        name = name if not n else f"{name}-{n + 1}"
+        path = self.logdir / f"{name}.log"
+        with open(path, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"tpu3fs_torch.bin.{module}",
+                 "--node-id", str(node_id), "--device", self.device, *args],
+                stdout=out, stderr=subprocess.STDOUT)
+        self.procs.append(SimpleNamespace(name=name, node_id=node_id,
+                                          proc=proc, log=path, killed=False))
+
+    def _storage(self, node_id: int) -> None:
+        self._start(f"storage{node_id}", "storage_main", node_id, [
+            "--mgmtd=%s:%d" % self.maddr, "--heartbeat_interval", "0.5",
+            "--config.engine=mem", "--config.usrbio=0",
+            "--config.target_scan_interval_s=0.5",
+            "--config.resync_interval_s=0.5"])
+
+    def registered(self, node_id: int, after_port: int = 0):
+        """The node's routing entry once it has registered an address
+        (with ``after_port``: one other than that, a restarted node)."""
+        def node():
+            n = self.admin.refresh_routing().nodes.get(node_id)
+            return n if n is not None and n.host and n.port \
+                and n.port != after_port else None
+        return sock_wait(node, f"node {node_id} to register")
+
+    def live_storage_pids(self) -> list:
+        return [c.proc.pid for c in self.procs
+                if c.name.startswith("storage") and c.proc.poll() is None]
+
+    def fail(self, node_id: int) -> None:
+        """SIGKILL the node's process; wait for mgmtd to take its targets
+        out of service."""
+        import signal
+
+        child = [c for c in self.procs if c.node_id == node_id][-1]
+        child.proc.send_signal(signal.SIGKILL)
+        child.proc.wait(SOCK_CHILD_STOP_S)
+        child.killed = True
+        sock_wait(lambda: sock_node_down(self.admin.refresh_routing(),
+                                         node_id),
+                  f"mgmtd to take node {node_id}'s targets down")
+
+    def restart(self, node_id: int) -> None:
+        """A new process for the node, its targets empty."""
+        old = self.admin.refresh_routing().nodes[node_id].port
+        self._storage(node_id)
+        self.registered(node_id, after_port=old)
+
+    def rebuild(self) -> int:
+        """The storage processes' own resync loops rebuild the new node's
+        targets: wait until every chain serves."""
+        sock_wait(lambda: sock_serving(self.admin.refresh_routing()),
+                  "the rebuild to bring every chain back")
+        return 0
+
+    def gc(self) -> int:
+        return 0  # meta's own GC loop collects (every 0.5 s)
+
+    def close(self) -> list:
+        """SIGTERM every live child and wait for each; -> problems: a
+        child that had to be killed, exited non-zero, or whose log holds
+        a traceback. A child killed on purpose exits -9."""
+        import signal
+
+        bad = []
+        live = [c for c in self.procs if c.proc.poll() is None]
+        for c in live:
+            c.proc.send_signal(signal.SIGTERM)
+        for c in live:
+            try:
+                c.proc.wait(SOCK_CHILD_STOP_S)
+            except subprocess.TimeoutExpired:
+                c.proc.kill()
+                c.proc.wait(SOCK_CHILD_STOP_S)
+                bad.append(f"{c.name} ignored SIGTERM for "
+                           f"{SOCK_CHILD_STOP_S:.0f} s and was killed")
+        for c in self.procs:
+            want = -9 if c.killed else 0
+            if c.proc.returncode != want and not any(
+                    b.startswith(c.name + " ") for b in bad):
+                bad.append(f"{c.name} exited {c.proc.returncode}")
+            text = c.log.read_text(errors="replace")
+            if "Traceback" in text:
+                bad.append(f"{c.name}'s log holds a traceback:\n"
+                           + text[text.index("Traceback"):][:2000])
+        return bad
+
+
+def sock_inputs(depth: int = FAB_STRIPES) -> dict:
+    """Phase 11's files (``serving_inputs``: /a and /b of ``depth`` stripes
+    of 1 MiB, the overwrite, /cr), the file written while a node is down
+    and the one meta's GC collects."""
+    rng = np.random.default_rng(1717)
+    u8 = lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()  # noqa: E731
+    return dict(serving_inputs(depth), w=u8(SOCK_W_MIB * MIB),
+                c=u8(SOCK_C_MIB * MIB))
+
+
+def sock_shards(sc, routing, inode, body: bytes, dev) -> int:
+    """Every shard of every stripe of ``inode`` as the storage nodes hold
+    it (read over the wire, ``batchReadRebuild``) against its
+    client-encoded twin (the file's stripes encoded here by ``RSCode`` on
+    ``dev``, trimmed as stored), and its CRC against ``crc32c_many``; the
+    first GOLD_STRIPES stripes also against ``encode_np`` and
+    ``crc32c_py``. -> the shards checked."""
+    from tpu3fs_torch.ops.crc32c import crc32c_many, crc32c_py
+    from tpu3fs_torch.ops.rs import RSCode
+    from tpu3fs_torch.ops.stripe import shard_size_of
+    from tpu3fs_torch.storage.craq import ReadReq
+    from tpu3fs_torch.storage.types import ChunkId
+
+    S = shard_size_of(MIB, K)
+    n = -(-len(body) // MIB)
+    stripes = np.zeros((n, K * S), dtype=np.uint8)
+    for i in range(n):
+        chunk = np.frombuffer(body[i * MIB:(i + 1) * MIB], np.uint8)
+        stripes[i, :chunk.size] = chunk
+    stripes = stripes.reshape(n, K, S)
+    rs = RSCode(K, M, device=dev)
+    parity = rs.encode(torch.from_numpy(stripes).to(dev)).cpu().numpy()
+    twins = np.concatenate([stripes, parity], axis=1)
+    gold = RSCode(K, M, device="cpu").encode_np(stripes[:GOLD_STRIPES])
+    require(np.array_equal(parity[:GOLD_STRIPES], gold),
+            "the card's encode differs from encode_np")
+    by_node = collections.defaultdict(list)
+    for i in range(n):
+        chain = routing.chains[inode.layout.chain_of_chunk(i)]
+        for j in range(K + M):
+            tid = chain.target_of_shard(j).target_id
+            by_node[routing.targets[tid].node_id].append(
+                (i, j, ReadReq(chain.chain_id, ChunkId(inode.id, i),
+                               target_id=tid)))
+    held, bufs = [], []
+    for node_id, items in by_node.items():
+        replies = sc.batch_read_rebuild(node_id, [r for _, _, r in items])
+        for (i, j, _), rp in zip(items, replies):
+            require(rp.ok, f"stripe {i} shard {j}: {rp.code!r}")
+            got = bytes(rp.data)
+            require(got == twins[i, j, :len(got)].tobytes(),
+                    f"stripe {i} shard {j} differs from its client-encoded "
+                    "twin")
+            if i < GOLD_STRIPES:
+                require(rp.checksum.value == crc32c_py(got),
+                        f"stripe {i} shard {j}: CRC vs crc32c_py")
+            held.append(rp.checksum.value)
+            bufs.append(got)
+    require(crc32c_many(bufs, device=dev) == held,
+            "a shard's CRC differs from its bytes' CRC")
+    return len(held)
+
+
+def sock_sequence(ctl, dev, inputs: dict, requests: dict,
+                  uncounted: collections.Counter, warm: tuple,
+                  trace: bool = False) -> dict:
+    """Phase 11's requests through ``MetaRpcClient``, ``StorageClient`` and
+    ``RpcMessenger`` against ``ctl`` (either part's cluster): write /a (48
+    stripes of 1 MiB), read it, a 5,000-byte overwrite (the delta RMW);
+    fail the first node, read /a degraded, write /w while it is down;
+    start it again empty and rebuild until every chain serves; read both;
+    write /b chain-encoded; every stored shard of /a, /w and /b against
+    its client-encoded twin; remove /c and /w and collect them with
+    meta's GC; 64 chunks of 256 KiB on the CR chain. Every byte read is
+    checked. The checks' own launches are added to ``uncounted``. ``warm``
+    is the warm-up file, whose shards the rebuild brings back too. With
+    ``trace`` each request runs under torch.profiler (its device time)."""
+    import hashlib
+    from unittest import mock
+
+    from tpu3fs_torch.client.file_io import FileIoClient
+    from tpu3fs_torch.client.storage_client import StorageClient
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.meta.types import Layout
+    from tpu3fs_torch.rpc.services import MetaRpcClient, RpcMessenger
+    from tpu3fs_torch.storage.craq import ReadReq
+    from tpu3fs_torch.storage.types import ChunkId
+
+    rec = {"reads": []}
+    part_b = isinstance(ctl, SockProcesses)  # its rebuild runs out of sight
+    meta = MetaRpcClient([ctl.meta_addr], client_id="smoke")
+    routing = ctl.admin.refresh_routing
+    sc = StorageClient("smoke", routing, RpcMessenger(routing), device=dev)
+    fio = FileIoClient(sc)
+
+    def request(name, fn):
+        return timed_request(requests, name, fn, dev, trace)
+
+    @contextlib.contextmanager
+    def not_counted():
+        before = read_counts()
+        yield
+        after = read_counts()
+        uncounted.update({n: after[n] - before[n] for n in after})
+
+    def write(name, path, body, layout=None):
+        kw = {"layout": layout} if layout is not None else {}
+        res = meta.create(path, flags=OpenFlags.WRITE | OpenFlags.CREATE,
+                          client_id="smoke", **kw)
+        request(name, lambda: fio.write(res.inode, 0, body))
+        return meta.close(res.inode.id, res.session_id)
+
+    def read(name, inode, want):
+        got = request(name, lambda: fio.read(inode, 0, len(want)))
+        require(got == want, f"{name}: the bytes read differ")
+        rec["reads"].append((name, hashlib.sha256(got).hexdigest()))
+
+    def victim_shards(node_id, files):
+        """The node's shards of ``files`` (bytes, chunks), read over the
+        wire after the rebuild: what it brought back."""
+        r = routing()
+        reqs = []
+        for inode, body in files:
+            for i in range(-(-len(body) // MIB)):
+                chain = r.chains[inode.layout.chain_of_chunk(i)]
+                for t in chain.targets:
+                    if r.targets[t.target_id].node_id == node_id:
+                        reqs.append(ReadReq(chain.chain_id,
+                                            ChunkId(inode.id, i),
+                                            target_id=t.target_id))
+        replies = sc.batch_read_rebuild(node_id, reqs)
+        require(all(rp.ok for rp in replies), "a victim shard is unreadable")
+        return sum(len(rp.data) for rp in replies), len(replies)
+
+    try:
+        body = bytearray(inputs["a"])
+        a = write("write", "/a", bytes(body))
+        read("read", a, bytes(body))
+        off, patch = inputs["patch"]
+        request("overwrite_5000B", lambda: fio.write(a, off, patch))
+        body[off:off + len(patch)] = patch
+        body = bytes(body)
+        victim = SOCK_IDS[0]
+        ctl.fail(victim)
+        read("degraded_read", a, body)
+        w = write("write_while_down", "/w", inputs["w"])
+        read("read_while_down", w, inputs["w"])
+        ctl.restart(victim)
+        rec["moved"] = request("rebuild", ctl.rebuild)
+        lost, lost_chunks = victim_shards(victim, [warm, (a, body),
+                                                   (w, inputs["w"])])
+        requests["rebuild"]["lost_bytes"] = lost
+        requests["rebuild"]["lost_chunks"] = lost_chunks
+        require(part_b or rec["moved"] == lost_chunks, f"the rebuild moved "
+                f"{rec['moved']} of the node's {lost_chunks} shards")
+        read("read_after_rebuild", a, body)
+        read("read_w_after_rebuild", w, inputs["w"])
+        with mock.patch.dict("os.environ", {"TPU3FS_EC_CHAIN_ENCODE": "1"}):
+            b = write("chain_encode_write", "/b", inputs["b"])
+        read("chain_encoded_read", b, inputs["b"])
+        with not_counted():
+            r = routing()
+            rec["shards_checked"] = sum(
+                sock_shards(sc, r, inode, data, dev) for inode, data in
+                ((a, body), (w, inputs["w"]), (b, inputs["b"])))
+        c = write("gc_file_write", "/c", inputs["c"])
+        for path in ("/c", "/w"):
+            meta.remove(path)
+        gone = [(c, len(inputs["c"])), (w, len(inputs["w"]))]
+
+        def collected():
+            r = routing()
+            for inode, size in gone:
+                for i in range(-(-size // MIB)):
+                    chain = r.chains[inode.layout.chain_of_chunk(i)]
+                    t = chain.target_of_shard(0).target_id
+                    rp = sc.batch_read_rebuild(
+                        r.targets[t].node_id,
+                        [ReadReq(chain.chain_id, ChunkId(inode.id, i),
+                                 target_id=t)])[0]
+                    if rp.ok:
+                        return False
+            return True
+
+        rec["gc"] = request("gc", lambda: (ctl.gc(), sock_wait(
+            collected, "meta's GC to remove the files' chunks"))[0])
+        cr_body = inputs["cr"]
+        cr = write("cr_write", "/cr", cr_body, Layout(
+            table_id=2, chains=[SOCK_CR_CHAIN], chunk_size=CR_FAB_CHUNK))
+        read("cr_read", cr, cr_body)
+        rec["lengths"] = [meta.stat(p).length for p in ("/a", "/b", "/cr")]
+        require(rec["lengths"] == [len(body), len(inputs["b"]), len(cr_body)],
+                f"file lengths {rec['lengths']}")
+        return rec
+    finally:
+        fio.close()
+        sc.close()
+
+
+def sock_mibps(requests: dict, inputs: dict) -> dict:
+    """Write, read, degraded-read and rebuild MiB/s (the rebuild's over the
+    failed node's bytes)."""
+    n = len(inputs["a"])
+    sizes = {"write": n, "read": n, "degraded_read": n,
+             "rebuild": requests["rebuild"]["lost_bytes"]}
+    return {k: sizes[k] / MIB / (requests[k]["host_ms"] / 1e3)
+            for k in sizes}
+
+
+def sock_dataload(ctl, dev, data: dict, mesh, body: bytes, requests: dict,
+                  stall: dict, info: dict) -> dict:
+    """Phase 16's workload over the processes: phase 13's records written
+    into 4 record files through ``MetaRpcClient`` and the socket client,
+    one shuffled, CRC-verified epoch at depth 4 with 1, 2 and 4 fetch
+    workers in turns (each the same (epoch, step, ids), each batch held
+    against its records on ``dev``); then ``body`` written as one file and
+    read in 1 MiB reads with readahead off and on, healthy and with the
+    second storage process killed. A fresh client a run, closed after it:
+    no fetch, readahead or fan-out worker is left."""
+    import hashlib
+
+    from tpu3fs_torch.client.file_io import FileIoClient
+    from tpu3fs_torch.client.storage_client import StorageClient
+    from tpu3fs_torch.dataload import (DataLoader, LoaderConfig,
+                                       PackedDataset, RecordFileWriter)
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.rpc.services import MetaRpcClient, RpcMessenger
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tokens, rec = data["tokens"], {}
+    meta = MetaRpcClient([ctl.meta_addr], client_id="smoke-data")
+    routing = ctl.admin.refresh_routing
+
+    def request(name, fn):
+        return timed_request(requests, name, fn, dev, False)
+
+    @contextlib.contextmanager
+    def client(prefetch=False):
+        sc = StorageClient(f"smoke-{len(requests)}", routing,
+                           RpcMessenger(routing), device=dev)
+        fio = FileIoClient(sc, prefetch=prefetch)
+        try:
+            yield fio
+        finally:
+            fio.close()
+            sc.close()
+
+    meta.mkdirs("/data", recursive=True)
+    per = data["records"] // data["files"]
+    paths = [f"/data/tokens{i}.rec" for i in range(data["files"])]
+    with client() as fio:
+        def pack():
+            for i, path in enumerate(paths):
+                w = RecordFileWriter(meta, fio, path, num_records=per)
+                for r in data["host"][i * per:(i + 1) * per]:
+                    w.append(r)
+                w.commit()
+        request("pack_records", pack)
+    cfg = dict(global_batch=data["batch"], seed=5, dtype="<i4",
+               sample_shape=(SEQ_TOKENS,), depth=FETCH_DEPTH, epochs=1)
+
+    def check(b):
+        local = b.data.to_local()
+        require(isinstance(b.data, DTensor) and tuple(b.data.shape)
+                == (data["batch"], SEQ_TOKENS)
+                and b.data.placements == (Shard(0), Replicate())
+                and local.device == tokens.device and torch.equal(
+                    local, tokens[torch.tensor(b.ids, device=tokens.device)]),
+                f"batch {b.step}: its tokens differ from the records")
+        return (b.epoch, b.step, b.ids)
+
+    def epoch(workers, key):
+        with client() as fio:
+            ds = PackedDataset(meta, fio, paths)
+            with DataLoader(ds, LoaderConfig(workers=workers, **cfg),
+                            mesh=mesh) as ld:
+                out = [check(b) for b in ld]
+                (stall[key],) = ld._stall_ms.collect(0.0)
+        require_no_workers(f"the socket epoch at {workers} workers")
+        return out
+
+    for turn, w in enumerate(FETCH_WORKERS):
+        key = f"epoch_w{w}_{'ab'[turn >= len(FETCH_WORKERS) // 2]}"
+        got = request(key, lambda: epoch(w, key))
+        rec.setdefault("epoch", got)
+        require(got == rec["epoch"], f"{key}: its batches differ from the "
+                "first epoch's")
+    # the client process's device share: one more epoch at 4 workers
+    # under torch.profiler (the storage processes' are out of its sight)
+    require(timed_request(requests, "epoch_w4_traced",
+                          lambda: epoch(4, "epoch_w4_traced"), dev,
+                          dev.type == "cuda") == rec["epoch"],
+            "the traced epoch differs from the first epoch")
+    ids = sorted(i for _, _, b in rec["epoch"] for i in b)
+    require(ids == list(range(data["records"])),
+            "the epoch did not cover every record once")
+    res = meta.create("/big", flags=OpenFlags.WRITE | OpenFlags.CREATE,
+                      client_id="smoke-data")
+    with client() as fio:
+        request("write_file", lambda: fio.write(res.inode, 0, body))
+    big = meta.close(res.inode.id, res.session_id)
+
+    def read_file(name, prefetch):
+        with client(prefetch) as fio:
+            got = request(name, lambda: b"".join(
+                fio.read(big, off, MIB) for off in range(0, len(body), MIB)))
+            pf = fio.prefetcher
+            if prefetch:
+                info[name] = {"hits": pf.hits._value,
+                              "misses": pf.misses._value,
+                              "failures": pf.failures._value}
+                require(pf.hits._value > 0 and pf.failures._value == 0,
+                        f"{name}: readahead {info[name]}")
+        require_no_workers(name)
+        require(got == body, f"{name}: the bytes read differ")
+        rec.setdefault("reads", []).append(
+            (name, hashlib.sha256(got).hexdigest()))
+
+    read_file("read_plain", False)
+    read_file("read_readahead", True)
+    ctl.fail(SOCK_IDS[1])
+    read_file("read_degraded_plain", False)
+    read_file("read_degraded_readahead", True)
+    return rec
+
+
+def sock_warm(ctl, dev) -> tuple:
+    """One 4-stripe file through a fresh cluster before its requests are
+    timed: every storage node's first install (in (b) its CUDA context
+    and the kernel library's load), the client's codec and connections.
+    -> (inode, bytes) of the file (its shards are rebuilt too)."""
+    from tpu3fs_torch.client.file_io import FileIoClient
+    from tpu3fs_torch.client.storage_client import StorageClient
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.rpc.services import MetaRpcClient, RpcMessenger
+
+    body = np.random.default_rng(0).integers(
+        0, 256, 4 * MIB, dtype=np.uint8).tobytes()
+    meta = MetaRpcClient([ctl.meta_addr], client_id="smoke-warm")
+    routing = ctl.admin.refresh_routing
+    sc = StorageClient("smoke-warm", routing, RpcMessenger(routing),
+                       device=dev)
+    fio = FileIoClient(sc)
+    try:
+        res = meta.create("/warm", flags=OpenFlags.WRITE | OpenFlags.CREATE,
+                          client_id="smoke-warm")
+        fio.write(res.inode, 0, body)
+        inode = meta.close(res.inode.id, res.session_id)
+        require(fio.read(inode, 0, len(body)) == body,
+                "the warm-up file's bytes differ")
+        return inode, body
+    finally:
+        fio.close()
+        sc.close()
+
+
+def sock_on_card(pids) -> dict:
+    """Each storage process runs on the card: ``nvidia-smi`` lists its pid
+    among the compute apps, or, where nvidia-smi sees the processes in
+    another pid namespace (it may list every process as pid 1), the
+    process has the card's device file open and has mapped the built
+    kernel library, which a process loads only at its first kernel
+    launch; nvidia-smi must then still count one compute app for this
+    process and one for each storage process. -> nvidia-smi's listing and
+    each pid's proof."""
+    from tpu3fs_torch import kernels
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    listed = {int(line.split(",")[0]) for line in smi if line.strip()}
+    if not set(pids) <= listed:
+        # another pid namespace: nvidia-smi must still count a compute
+        # app for this process and for each storage process
+        require(len(smi) >= 1 + len(pids), f"nvidia-smi lists {len(smi)} "
+                f"compute apps for this process and {len(pids)} storage "
+                f"processes: {smi}")
+    proof = {}
+    for pid in pids:
+        if pid in listed:
+            proof[pid] = "nvidia-smi"
+            continue
+        fds = []
+        for fd in Path(f"/proc/{pid}/fd").iterdir():
+            try:
+                fds.append(os.readlink(fd))
+            except OSError:
+                pass
+        cards = sorted({f for f in fds if re.fullmatch(r"/dev/nvidia\d+", f)})
+        maps = Path(f"/proc/{pid}/maps").read_text()
+        lib = str(kernels.BUILD_DIR.resolve() / "libtpu3fs_torch_")
+        require(cards and lib in maps, f"storage process {pid}: not listed "
+                f"by nvidia-smi ({smi}), card files {cards}, kernel library "
+                f"mapped {lib in maps}")
+        proof[pid] = f"{cards[0]} open, kernel library mapped"
+    return {"nvidia_smi": smi, "pids": proof}
+
+
+def sock_part(part: str, dev, full: dict, inputs: dict, body: bytes,
+              logdir: Path, trace: bool = False) -> dict:
+    """One part of phase 17 on ``dev``: (a) the apps in this process, (b)
+    the services as processes (with phase 16's workload over them; the
+    nvidia-smi check on a card). Every kernel count is zeroed before the
+    part's requests and read after them, the checks' own launches taken
+    out. -> launches, each request's host time and launches, rates."""
+    requests, uncounted, stall, info = {}, collections.Counter(), {}, {}
+    t0 = time.perf_counter()
+    ctl, problems = None, []
+    try:
+        ctl = (SockInProcess(dev) if part == "a" else
+               SockProcesses(logdir, "cuda" if dev.type == "cuda" else "cpu"))
+        warm = sock_warm(ctl, dev)
+        zero_counts()
+        rec = sock_sequence(ctl, dev, inputs, requests, uncounted, warm,
+                            trace)
+        if part == "b":
+            if dev.type == "cuda":
+                info["on_card"] = sock_on_card(ctl.live_storage_pids())
+            with one_rank_group(dev) as mesh:
+                rec["data"] = sock_dataload(ctl, dev, full, mesh, body,
+                                            requests, stall, info)
+        counts = read_counts()
+    finally:
+        if ctl is not None:
+            problems = ctl.close()
+    require(not problems, f"phase 17 ({part}): {problems}")
+    counts = {n: c - uncounted[n] for n, c in counts.items()}
+    e2e = {"MiB_s": sock_mibps(requests, inputs), "moved": rec["moved"],
+           "gc": rec["gc"], "shards_checked": rec["shards_checked"]}
+    for key, st in stall.items():
+        e2e[key] = {
+            "samples_s": full["records"] / (requests[key]["host_ms"] / 1e3),
+            "stall_ms": {k: getattr(st, k) for k in (
+                "count", "mean", "p50", "p99", "max")},
+            "K2": requests[key]["launches"].get("crc32c_blocks", 0)}
+    for name in ("read_plain", "read_readahead", "read_degraded_plain",
+                 "read_degraded_readahead", "write_file"):
+        if name in requests:
+            e2e[name] = {
+                "MiB_s": len(body) / MIB / (requests[name]["host_ms"] / 1e3),
+                "K1": requests[name]["launches"].get("gf2_matmul", 0),
+                **info.get(name, {})}
+    if part == "b":
+        e2e["boot_s"] = ctl.boot_s
+        e2e["on_card"] = info.get("on_card")
+    return {"launches": counts, "requests": requests, "e2e": e2e,
+            "record": rec, "seconds": time.perf_counter() - t0}
+
+
+def sockets(dev, full: dict) -> dict:
+    """Phase 17: the services over sockets, (a) in this process, then (b)
+    as processes from their entry points, on the card. Every byte is
+    checked, and every K1, K2 and K3 call the script counts must be a
+    tensor-core or kernel launch. Returns the launches of both parts: for
+    (b) the client's only, since the storage processes' launches are not
+    visible to this process."""
+    import tempfile
+
+    t0 = phase("phase 17: the services over sockets")
+    inputs = sock_inputs()
+    body = rand_u8((FETCH_FULL_MIB * MIB,), 1717, dev).cpu().numpy().tobytes()
+    totals, runs = collections.Counter(), {}
+    with tempfile.TemporaryDirectory() as tmp:  # warm-up: codecs, allocator
+        sock_part("a", dev, full, inputs, body, Path(tmp))
+    for part in ("a", "b"):
+        with tempfile.TemporaryDirectory() as tmp:
+            run = runs[part] = sock_part(part, dev, full, inputs, body,
+                                         Path(tmp))
+        # (a) rebuilds in this process (K3 for a single lost shard); (b)'s
+        # rebuild runs in the storage processes, out of the script's count
+        require_main_path(f"the services over sockets ({part})",
+                          run["launches"], ("gf2_matmul", "crc32c_blocks")
+                          + (("xor_reduce",) if part == "a" else ()))
+        totals.update(run["launches"])
+        log(json.dumps({"sockets": part, "e2e": run["e2e"],
+                        "requests": run["requests"],
+                        "launches": run["launches"], "card": card_line(),
+                        "seconds": run["seconds"]}))
+    # (a) once more, each request under torch.profiler: the device share
+    # of the one process that holds the whole cluster
+    with tempfile.TemporaryDirectory() as tmp:
+        traced = sock_part("a", dev, full, inputs, body, Path(tmp),
+                           trace=True)
+    require(traced["record"]["reads"] == runs["a"]["record"]["reads"],
+            "the traced run's reads differ from the main path's")
+    shares = {name: {"host_ms": row["host_ms"],
+                     "traced": traced["requests"][name]}
+              for name, row in runs["a"]["requests"].items()}
+    log(json.dumps({"sockets_shares": shares, "card": card_line()}))
+    log(f"sockets: launches {dict(totals)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {n: totals[n] for n in counters()}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
@@ -3642,6 +4491,9 @@ def main() -> int:
         _, fetch_card = fetch(dev, full)
         fetch_shares(dev, fetch_card, full)
         return 0
+    if sys.argv[1:] == ["--sockets"]:
+        sockets(dev, train_data(dev, TRAIN_FULL))
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -3662,8 +4514,10 @@ def main() -> int:
     # after phase 15: with phase 16 run just before it, K4's graph trace
     # once lost one of its 30 kernel records
     paths["fetch"], fetch_card = fetch(dev, train_full)
+    paths["sockets"] = sockets(dev, train_full)
     for row in kernels:
-        row["launches_by_path"]["fetch"] = paths["fetch"][row["name"]]
+        for path in ("fetch", "sockets"):
+            row["launches_by_path"][path] = paths[path][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)
     serving_shares(dev, served)

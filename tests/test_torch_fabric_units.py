@@ -280,6 +280,9 @@ def test_file_client_prefetch_raises():
     from tpu3fs_torch.client import FileIoClient
     from tpu3fs_torch.meta.store import OpenFlags
 
+    # threads of other tests in this process (the JAX package's readahead
+    # names its workers prefetch-* too) are not this client's
+    before = set(threading.enumerate())
     fab = _cpu_fabric(num_storage_nodes=3, num_chains=2, num_replicas=2,
                       chunk_size=64 << 10)
     data = bytes(range(256)) * 1024
@@ -306,7 +309,7 @@ def test_file_client_prefetch_raises():
         assert pf.cached_bytes() == 0
     finally:
         fio.close()
-    assert not [t for t in threading.enumerate()
+    assert not [t for t in set(threading.enumerate()) - before
                 if t.name.startswith("prefetch-") and t.is_alive()]
 
 

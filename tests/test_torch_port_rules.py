@@ -1,12 +1,15 @@
 """Rules the port keeps: tpu3fs_torch and chip_smoke.py import neither jax
-nor tpu3fs; importing the package touches no CUDA and no triton; entry
-points default to the card and raise without one; the kernel build
-directory is git-ignored."""
+nor tpu3fs; importing the package (its transport, apps and binaries
+included) touches no CUDA and no triton; entry points default to the card
+and raise without one; the kernel build directory is git-ignored, and
+processes that load the library at once on a fresh tree run nvcc once."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -136,3 +139,84 @@ def test_import_ckpt_and_dataload_touches_no_cuda():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.split() == ["False", "False", "0"]
+
+
+def test_import_transport_apps_and_binaries_touches_no_cuda():
+    code = ("import sys, torch, tpu3fs_torch.rpc.net, "
+            "tpu3fs_torch.rpc.services, tpu3fs_torch.app, "
+            "tpu3fs_torch.bin.mgmtd_main, tpu3fs_torch.bin.storage_main, "
+            "tpu3fs_torch.bin.meta_main, tpu3fs_torch.client.stubs, "
+            "tpu3fs_torch.monitor.collector, tpu3fs_torch.core, "
+            "tpu3fs_torch.metashard; "
+            "print(torch.cuda.is_initialized(), 'triton' in sys.modules, "
+            "tpu3fs_torch.kernels.library.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "0"]
+
+
+# one child: waits for the parent's go, then loads the library from a
+# fake build tree (one source) through a stub nvcc, the loader stubbed
+_LOAD_CHILD = r"""
+import sys, time
+from pathlib import Path
+from tpu3fs_torch import kernels
+tmp = Path(sys.argv[1])
+kernels.BUILD_DIR = tmp / "build"
+kernels.SRC_DIR = tmp / "src"
+class Lib:
+    def __getattr__(self, name):
+        return type("Fn", (), {})()
+kernels.ctypes.CDLL = lambda path: Lib()
+(tmp / f"ready-{sys.argv[2]}").touch()
+while not (tmp / "go").exists():
+    time.sleep(0.01)
+kernels.library()
+print("loaded")
+"""
+
+# a stub nvcc: count the call, take a while, write its -o output
+_STUB_NVCC = """#!/bin/sh
+echo "$*" >> "{count}"
+sleep 1
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then shift; : > "$1"; fi
+  shift
+done
+"""
+
+
+def test_kernel_build_runs_nvcc_once_across_processes(tmp_path):
+    """Two processes load the library at once on a fresh tree: the build's
+    file lock lets one run nvcc (one compile and one link) and the other
+    waits and loads the result."""
+    (tmp_path / "src").mkdir()
+    (tmp_path / "src" / "a.cu").write_text("// one source\n")
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    count = tmp_path / "nvcc-calls"
+    nvcc.write_text(_STUB_NVCC.format(count=count))
+    nvcc.chmod(0o755)
+    env = {**os.environ, "CUDA_HOME": str(tmp_path / "cuda")}
+    procs = [subprocess.Popen([sys.executable, "-c", _LOAD_CHILD,
+                               str(tmp_path), str(i)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(2)]
+    try:
+        deadline = time.monotonic() + 60
+        while not all((tmp_path / f"ready-{i}").exists() for i in range(2)):
+            assert time.monotonic() < deadline, "children did not start"
+            assert all(p.poll() is None for p in procs)
+            time.sleep(0.02)
+        (tmp_path / "go").touch()
+        outs = [p.communicate(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert all(o.strip() == "loaded" for o, _ in outs)
+    calls = count.read_text().splitlines()
+    assert len(calls) == 2, calls  # one compile of a.cu and one link
+    assert sum("-shared" in c for c in calls) == 1

@@ -1,7 +1,7 @@
 """The storage and file clients (``storage_client``, ``file_io``,
-``hedging``, ``prefetch``): the port's own copies of those modules of
-``tpu3fs/client/``. ``inmem`` and ``stubs`` are not ported (ROADMAP
-M6a-2)."""
+``hedging``, ``prefetch``, ``stubs``): the port's own copies of those
+modules of ``tpu3fs/client/``. ``inmem`` is not ported (ROADMAP
+M6a-2b)."""
 
 from tpu3fs_torch.client.storage_client import (  # noqa: F401
     StorageClient,

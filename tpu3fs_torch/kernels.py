@@ -5,12 +5,16 @@ them at once, and the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes``. Nothing here includes PyTorch's
 headers, so a build takes seconds. The library is named by a hash of the
 sources and flags and lives in ``_build/`` (git-ignored); a changed source
-builds a new one. A failed build raises: there is no fallback.
+builds a new one. A failed build raises: there is no fallback. The build
+holds a file lock in ``_build/``, so service processes started together on
+a fresh tree run ``nvcc`` once: the first builds, the others wait for it
+and load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -121,8 +125,16 @@ def _load() -> ctypes.CDLL:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
     target = BUILD_DIR / f"libtpu3fs_torch_{_digest(sources)}.so"
-    if not target.exists():
-        _build(sources, target)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # across processes: one builds, the others block here and then find
+    # the library (the thread lock in library() covers one process)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not target.exists():
+                _build(sources, target)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,2 +1,4 @@
-"""The migration job schema (``types``): the port's own copy of
-``tpu3fs/migration/types.py``. The migration service is not ported yet."""
+"""The migration job schema (``types``) and the storage node's
+retired-target recorder (``service.record_retired_target``): the port's
+own copies from ``tpu3fs/migration/``. The migration service is not
+ported yet."""

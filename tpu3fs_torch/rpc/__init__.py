@@ -1,4 +1,5 @@
-"""Request deadlines, peer health and the record codec (``deadline``,
-``health``, ``serde``): the port's own copies of those modules of
-``tpu3fs/rpc/``. The RPC transport (``net``, ``services``) is not ported
-(ROADMAP M6a)."""
+"""The RPC layer: the port's own copies of ``tpu3fs/rpc/``'s ``deadline``,
+``health``, ``serde``, ``idempotency``, ``net`` (the TCP transport) and
+``services`` (the storage, mgmtd, meta and core bindings and their client
+stubs). ``native_net`` (the C++ transport) and the messenger's USRBIO
+rings are not ported (ROADMAP M6a-3)."""

@@ -9,8 +9,8 @@ storage (docs/serving.md). The package splits along the protocol:
   fill-intent claim table;
 - ``service``   — the Serving RPC service's types (peerRead/fillClaim/
   fillRelease/servingStats/servingLoad) and its per-process host; the
-  socket binding and the socket/shm-ring peer client wait for the port's
-  RPC transport (ROADMAP M6a) and raise;
+  socket binding and the socket/shm-ring peer client are the tier's
+  socket half (ROADMAP M6a-2b) and raise;
 - ``fleet``     — ``FleetKVCache``: the TieredKVCache subclass whose
   miss path runs single-flight -> hedged peer fill -> claimed storage
   fill, with shared-block refcounts and tenant-aware peer admission.

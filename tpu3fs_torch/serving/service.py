@@ -5,8 +5,8 @@ service in the JAX package, and ``peerRead`` — the only data-plane method
 — additionally rides the USRBIO shm rings when requester and peer share a
 host. The port has the in-process half: the request and reply types and
 ``ServingHost``. The socket binding (``bind_serving_service``) and the
-socket/ring peer client (``ServingPeerClient``) need the RPC transport and
-the USRBIO rings, which the port has not taken yet (ROADMAP M6a): both
+socket/ring peer client (``ServingPeerClient``) are the serving tier's
+socket half, not ported yet (ROADMAP M6a-2b; its rings are M6a-3): both
 raise ``NotImplementedError``. In one process a caller hands
 ``FleetKVCache`` any object with ``peer_read``/``fill_claim``/
 ``fill_release`` that dispatches into the peers' ``ServingHost``s.
@@ -339,21 +339,21 @@ class ServingHost:
 
 
 def bind_serving_service(server, host: ServingHost):
-    """Bind the Serving service onto an RPC server: needs the port's RPC
-    transport, not taken yet."""
+    """Bind the Serving service onto an RPC server: the serving tier's
+    socket half, not ported yet."""
     raise NotImplementedError(
-        "bind_serving_service needs rpc/net.py, which the port has not "
-        "taken yet (ROADMAP M6a); in one process, dispatch peer calls into "
-        "ServingHost directly")
+        "bind_serving_service (the serving tier's socket half) is not "
+        "ported yet (ROADMAP M6a-2b); in one process, dispatch peer calls "
+        "into ServingHost directly")
 
 
 class ServingPeerClient:
     """Client half of the peer-fill protocol over sockets and shm rings:
-    needs the port's RPC transport and USRBIO rings, not taken yet."""
+    the serving tier's socket half (and its rings), not ported yet."""
 
     def __init__(self, rpc_client, *, usrbio: bool = True,
                  entries: int = 64, iov_bytes: int = 8 << 20):
         raise NotImplementedError(
-            "ServingPeerClient needs rpc/services.py and the usrbio "
-            "transports, which the port has not taken yet (ROADMAP M6a); in "
-            "one process, dispatch peer calls into ServingHost directly")
+            "ServingPeerClient (the serving tier's socket half) is not "
+            "ported yet (ROADMAP M6a-2b; its shm rings M6a-3); in one "
+            "process, dispatch peer calls into ServingHost directly")

@@ -1,6 +1,6 @@
-"""Tenant identity and quotas: the port's own copies of
-``tpu3fs/tenant/identity.py`` and ``quota.py``. ``enforcement`` is not
-ported."""
+"""Tenant identity, quotas and per-method enforcement: the port's own
+copies of ``tpu3fs/tenant/identity.py``, ``quota.py`` and
+``enforcement.py``."""
 
 from tpu3fs_torch.tenant.identity import (  # noqa: F401
     DEFAULT_TENANT,

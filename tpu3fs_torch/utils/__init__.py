@@ -1,5 +1,5 @@
 """Host utilities (``result``, ``config``, ``fault_injection``, ``trash``,
-``executor``, ``logging``): the port's own copies of the modules of
+``executor``, ``logging``, ``bufpool``): the port's own copies of the modules of
 ``tpu3fs/utils/`` that the storage tier, the checkpoint retention, the
 loader's fetch workers and the readahead import."""
 
