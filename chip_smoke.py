@@ -173,7 +173,28 @@ Phases, in order (any failure exits non-zero):
      SIGTERM within 10 s, exit codes and logs checked. Host ms and
      launches of each request; write, read, degraded-read and rebuild
      MiB/s. (b) counts the client's launches only.
-Phases 7-14, 16 and 17 are the main path: every kernel count is set to 0
+ 18. the deployment as processes (fleet; after phase 17, its launches
+     under "fleet"): a kvd group of three (kv_main --peers, fsync on),
+     monitor_main, mgmtd and two meta servers on --kv the group with 4
+     meta partitions, phase 17's four storage nodes and two serving_main
+     processes (1 GiB host tiers), each python -m ... --device cuda; the
+     script is the inference host (a PrefixBlockStore over a FleetKVCache
+     on the card, its peers reached by ServingPeerClient over TCP) at
+     phase 12's Llama-3.1-8B pages: 61's write-through servingLoad put
+     leg, the host's put of A, 61's storage fills of A, B's 192-page
+     prefix peer-filled from 61 in 16-page peerReads and put on the card
+     by get_blocks, B's own pages put from the host, single-flight (K
+     concurrent misses, one storage fill) and A's fills in 62, a
+     storage process SIGKILLed and B's tail read degraded, the kvd leader
+     SIGKILLed with meta creates and stats on every partition going on
+     and its restart catching up, and aggQuery/sloStatus on the
+     collector. Every page on the card and a sample of stored shards
+     checked; the storage and serving processes shown on the card, the
+     kvd members and the collector off it; host ms and launches of each
+     step, put, peer-fill and storage-fill GiB/s, the prefix-on-card ms
+     and the failover's time to the first meta reply. Only the script's
+     launches are counted.
+Phases 7-14 and 16-18 are the main path: every kernel count is set to 0
 just before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
@@ -183,7 +204,7 @@ times K4's launch plan varied (fold_variants); ``--kvcache`` builds them
 and runs phase 12 alone, with its traced run; ``--ckpt`` builds them and
 runs phase 13 alone, with its traced run; ``--fetch`` builds them and
 runs phase 16 alone, with its traced run; ``--sockets`` builds them and
-runs phase 17 alone.
+runs phase 17 alone; ``--fleet`` builds them and runs phase 18 alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -3667,6 +3688,13 @@ def sock_wait(pred, what: str, timeout: float = SOCK_WAIT_S):
         time.sleep(0.1)
 
 
+def free_port() -> int:
+    """A port from a socket bound to port 0, closed just before use."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def sock_layout(admin, ids) -> None:
     """Phase 11's chains over ``ids``, uploaded as an operator would: two
     RS(12,4) chains of 16 targets, shard j on node ids[j % 4] (4 targets of
@@ -3848,9 +3876,7 @@ class SockProcesses:
     def _boot(self) -> None:
         from tpu3fs_torch.rpc.services import MgmtdAdminRpcClient
 
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
+        port = free_port()
         self.maddr = ("127.0.0.1", port)
         self.admin = MgmtdAdminRpcClient(self.maddr)
         self._start("mgmtd", "mgmtd_main", SOCK_MGMTD,
@@ -3901,9 +3927,11 @@ class SockProcesses:
                 and n.port != after_port else None
         return sock_wait(node, f"node {node_id} to register")
 
-    def live_storage_pids(self) -> list:
+    def pid_of(self, prefix: str) -> list:
+        """The pids of the live children whose names start with
+        ``prefix``."""
         return [c.proc.pid for c in self.procs
-                if c.name.startswith("storage") and c.proc.poll() is None]
+                if c.name.startswith(prefix) and c.proc.poll() is None]
 
     def fail(self, node_id: int) -> None:
         """SIGKILL the node's process; wait for mgmtd to take its targets
@@ -4382,7 +4410,7 @@ def sock_part(part: str, dev, full: dict, inputs: dict, body: bytes,
                             trace)
         if part == "b":
             if dev.type == "cuda":
-                info["on_card"] = sock_on_card(ctl.live_storage_pids())
+                info["on_card"] = sock_on_card(ctl.pid_of("storage"))
             with one_rank_group(dev) as mesh:
                 rec["data"] = sock_dataload(ctl, dev, full, mesh, body,
                                             requests, stall, info)
@@ -4459,6 +4487,600 @@ def sockets(dev, full: dict) -> dict:
     return {n: totals[n] for n in counters()}
 
 
+# -- phase 18 ----------------------------------------------------------------
+FLEET_KVD = (11, 12, 13)               # the kvd group's member ids
+FLEET_META = (201, 202)                # two meta servers, partitioned
+FLEET_PARTS = 4                        # meta partitions
+FLEET_SERVING = (61, 62)               # the serving processes
+FLEET_MONITOR = 300                    # monitor_collector
+FLEET_HOST = 70                        # this script, the inference host
+FLEET_TIER = 1 << 30                   # each host tier: A is 512 MiB
+FLEET_BATCH = 16                       # pages a decode-step chunk fetches
+FLEET_SF_K = 8                         # concurrent misses of one key
+FLEET_PUSH_S = 1.0                     # every process's sample push period
+FLEET_FAILOVER_S = 60.0                # bound: kvd leader death -> meta reply
+# heartbeats and mgmtd's tick: each is a transaction on the shared KV, and
+# they contend on its routing version key
+FLEET_BEAT_S = 1.0
+# the inference host's hedge floor: a peerRead of one 2 MiB page over
+# loopback TCP takes milliseconds, not the default 5 ms floor's budget
+FLEET_HEDGE_MS = 250.0
+
+
+def fleet_group_ports(n: int) -> list:
+    """``n`` bindable ports below the kernel's ephemeral range: kvd group
+    members restart on the fixed ports of their peer map, and an
+    ephemeral source port could squat on a killed member's freed port."""
+    import random
+
+    ports = []
+    rng = random.Random()
+    while len(ports) < n:
+        p = rng.randrange(20000, 30000)
+        if p in ports:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError:
+                continue
+        ports.append(p)
+    return ports
+
+
+class FleetProcesses(SockProcesses):
+    """Phase 18: the whole deployment as processes from their entry points
+    (never forked): a kvd group of three (``kv_main --peers``, a data
+    directory each, fsync on), ``monitor_main``, mgmtd and two meta
+    servers on ``--kv`` the group (4 meta partitions), phase 17's four
+    storage nodes and two ``serving_main`` processes with a 1 GiB host
+    tier each; every process but the kvd members and the collector pushes
+    its samples to the collector. The kvd group boots first and must show
+    one leader before anything is started on it."""
+
+    def _boot(self) -> None:
+        from tpu3fs_torch.rpc.services import MgmtdAdminRpcClient, MgmtdRpcClient
+
+        t0 = time.perf_counter()
+        kv_ports = fleet_group_ports(len(FLEET_KVD))
+        self.kv_addrs = {n: ("127.0.0.1", p)
+                         for n, p in zip(FLEET_KVD, kv_ports)}
+        # with the members' ids: a hint names the leader by id
+        self.kv_flag = ",".join(f"{n}={h}:{p}"
+                                for n, (h, p) in self.kv_addrs.items())
+        for node_id in FLEET_KVD:
+            self._kvd(node_id)
+        self.kv_leader()
+        self.mon_addr = ("127.0.0.1", free_port())
+        self._start("monitor", "monitor_main", FLEET_MONITOR, [
+            "--port", str(self.mon_addr[1]),
+            f"--config.out_path={self.logdir / 'samples.db'}"])
+        self.push = [f"--config.collector={self.mon_addr[0]}:"
+                     f"{self.mon_addr[1]}",
+                     f"--config.monitor_push_period_s={FLEET_PUSH_S}"]
+        port = free_port()
+        self.maddr = ("127.0.0.1", port)
+        self.admin = MgmtdAdminRpcClient(self.maddr)
+        self.mgmtd_cli = MgmtdRpcClient(self.maddr)
+        self._start("mgmtd", "mgmtd_main", SOCK_MGMTD, [
+            "--port", str(port), "--kv", self.kv_flag,
+            f"--config.meta_partitions={FLEET_PARTS}",
+            f"--config.tick_interval_s={FLEET_BEAT_S}",
+            "--config.heartbeat_timeout_s=5", *self.push])
+        sock_wait(lambda: self.admin.refresh_routing() is not None,
+                  "mgmtd to answer")
+        for node_id in SOCK_IDS:
+            self._storage(node_id)
+        for node_id in SOCK_IDS:
+            self.registered(node_id)
+        sock_layout(self.admin, SOCK_IDS)
+        sock_wait(lambda: sock_serving(self.admin.refresh_routing()),
+                  "every chain to serve")
+        # one at a time: every registration bumps the routing version, one
+        # hot key of the shared KV
+        self.meta_addrs = []
+        for node_id in FLEET_META:
+            self._start(f"meta{node_id}", "meta_main", node_id, [
+                "--mgmtd=%s:%d" % self.maddr, "--kv", self.kv_flag,
+                "--meta-partitions", str(FLEET_PARTS),
+                "--heartbeat_interval", str(FLEET_BEAT_S),
+                "--config.gc_interval_s=1", *self.push])
+            node = self.registered(node_id)
+            self.meta_addrs.append((node.host, node.port))
+
+        def balanced():
+            parts = self.admin.refresh_routing().meta_partitions
+            owners = {row.node_id for row in parts.values()}
+            return len(parts) == FLEET_PARTS and owners == set(FLEET_META)
+        sock_wait(balanced, "both meta servers to own partitions")
+        self.serving = {}
+        for node_id in FLEET_SERVING:
+            self._start(f"serving{node_id}", "serving_main", node_id, [
+                "--mgmtd=%s:%d" % self.maddr,
+                "--heartbeat_interval", str(FLEET_BEAT_S),
+                f"--config.capacity_bytes={FLEET_TIER}",
+                f"--config.dirty_max_bytes={FLEET_TIER}", *self.push])
+            self.serving[node_id] = sock_wait(
+                lambda n=node_id: self.admin.refresh_routing().serving.get(n),
+                f"serving {node_id} to register")
+        self.boot_s = time.perf_counter() - t0
+
+    def _storage(self, node_id: int) -> None:
+        self._start(f"storage{node_id}", "storage_main", node_id, [
+            "--mgmtd=%s:%d" % self.maddr,
+            "--heartbeat_interval", str(FLEET_BEAT_S),
+            "--config.engine=mem", "--config.usrbio=0",
+            "--config.target_scan_interval_s=0.5",
+            "--config.resync_interval_s=0.5", *self.push])
+
+    def _kvd(self, node_id: int) -> None:
+        peers = ",".join(f"{n}={h}:{p}" for n, (h, p) in
+                         self.kv_addrs.items())
+        self._start(f"kvd{node_id}", "kv_main", node_id, [
+            "--port", str(self.kv_addrs[node_id][1]), "--peers", peers,
+            "--data-dir", str(self.logdir / f"kvd{node_id}"),
+            "--fsync", "1"])
+
+    def kv_status(self) -> dict:
+        """node id -> StatusRsp of every member that answers."""
+        from tpu3fs_torch.kv.replica import KV_REPL_SERVICE_ID, StatusReq, StatusRsp
+        from tpu3fs_torch.rpc.net import RpcClient
+
+        out = {}
+        cli = RpcClient(connect_timeout=1.0, call_timeout=2.0)
+        try:
+            for n, addr in self.kv_addrs.items():
+                try:
+                    out[n] = cli.call(addr, KV_REPL_SERVICE_ID, 4,
+                                      StatusReq(), StatusRsp)
+                except Exception:
+                    pass
+        finally:
+            cli.close()
+        return out
+
+    def kv_leader(self, exclude=()) -> int:
+        """The one leader every answering member names (bounded wait)."""
+        def one():
+            st = {n: r for n, r in self.kv_status().items()
+                  if n not in exclude}
+            leaders = [n for n, r in st.items() if r.role == "leader"]
+            if len(leaders) == 1 and len(st) >= 2 and all(
+                    r.leader_id == leaders[0] for r in st.values()):
+                return leaders[0]
+            return None
+        return sock_wait(one, "the kvd group to show one leader")
+
+    def kill(self, name: str) -> None:
+        import signal
+
+        child = [c for c in self.procs if c.name == name][-1]
+        child.proc.send_signal(signal.SIGKILL)
+        child.proc.wait(SOCK_CHILD_STOP_S)
+        child.killed = True
+
+
+def fleet_device_files(pid: int) -> dict:
+    """What ties a process to the card: the card's device files it holds
+    open or has mapped, and whether the built kernel library is mapped."""
+    from tpu3fs_torch import kernels
+
+    fds = set()
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            fds.add(os.readlink(fd))
+        except OSError:
+            pass
+    maps = Path(f"/proc/{pid}/maps").read_text()
+    mapped = sorted({m for m in re.findall(r"/dev/nvidia[\w-]*", maps)})
+    lib = str(kernels.BUILD_DIR.resolve() / "libtpu3fs_torch_")
+    return {"open": sorted(f for f in fds if f.startswith("/dev/nvidia")),
+            "mapped": mapped, "kernel_library": lib in maps}
+
+
+def fleet_off_card(pids: list, on_pids: list) -> dict:
+    """The kvd members and the collector hold no CUDA context. Asking
+    whether a card exists (``--device cuda`` resolves through
+    ``torch.cuda.is_available()``) opens and maps the card's control and
+    device files; a context also maps ``/dev/nvidia-uvm``, which every
+    process shown on the card (``on_pids``) must map and none of ``pids``
+    may, nor the kernel library."""
+    seen = {pid: fleet_device_files(pid) for pid in on_pids + pids}
+    log(json.dumps({"device_files": seen}))
+    for pid in on_pids:
+        require("/dev/nvidia-uvm" in seen[pid]["mapped"],
+                f"process {pid} is on the card but maps no unified "
+                f"memory: {seen[pid]}")
+    for pid in pids:
+        require("/dev/nvidia-uvm" not in seen[pid]["mapped"]
+                and not seen[pid]["kernel_library"],
+                f"process {pid} (kvd or collector) holds a CUDA context: "
+                f"{seen[pid]}")
+    return {str(pid): seen[pid] for pid in pids + on_pids}
+
+
+class FleetHost:
+    """The inference host: this process. A ``PrefixBlockStore`` over a
+    ``FleetKVCache`` on the card, on the deployment's meta (partition-
+    routed) and storage; its peers are the serving processes the current
+    step names, from mgmtd's serving directory, reached through
+    ``ServingPeerClient(RpcClient(), usrbio=False)``."""
+
+    def __init__(self, ctl: FleetProcesses, dev):
+        from tpu3fs_torch.client.file_io import FileIoClient
+        from tpu3fs_torch.client.hedging import HedgeController
+        from tpu3fs_torch.client.storage_client import StorageClient
+        from tpu3fs_torch.kvcache import KVCacheClient, PrefixBlockStore
+        from tpu3fs_torch.rpc.health import HealthRegistry
+        from tpu3fs_torch.rpc.net import RpcClient
+        from tpu3fs_torch.rpc.services import MetaRpcClient, RpcMessenger
+        from tpu3fs_torch.serving import FleetKVCache
+        from tpu3fs_torch.serving.service import ServingPeerClient
+
+        self.ctl = ctl
+        routing = ctl.admin.refresh_routing
+        self.meta = MetaRpcClient(ctl.meta_addrs, client_id="fleet-host",
+                                  mgmtd=ctl.mgmtd_cli, nparts=FLEET_PARTS)
+        self.sc = StorageClient("fleet-host", routing,
+                                RpcMessenger(routing), device=dev)
+        self.fio = FileIoClient(self.sc)
+        self.kv = KVCacheClient(self.meta, self.fio, client_id="fleet-host",
+                                inode_cache=4096)
+        # a servingLoad leg is one call that runs the whole leg
+        self.rpc = RpcClient(call_timeout=SOCK_WAIT_S)
+        self.peers = ServingPeerClient(self.rpc, usrbio=False)
+        self.view = SimpleNamespace(serving={})
+        health = HealthRegistry()
+        self.fleet = FleetKVCache(
+            self.kv, node_id=FLEET_HOST, routing=lambda: self.view,
+            peer_client=self.peers, health=health,
+            hedge=HedgeController(health=health,
+                                  delay_floor_ms=FLEET_HEDGE_MS),
+            capacity_bytes=FLEET_TIER, dirty_max_bytes=FLEET_TIER,
+            write_through=True)
+        self.store = PrefixBlockStore(self.fleet,
+                                      block_tokens=KV_BLOCK_TOKENS)
+
+    def peers_are(self, *node_ids) -> None:
+        """The serving directory as mgmtd publishes it, cut to the step's
+        peers."""
+        serving = self.ctl.admin.refresh_routing().serving
+        self.view.serving = {n: serving[n] for n in node_ids}
+
+    def load(self, node_id: int, req):
+        return self.peers.load(self.ctl.serving[node_id], req)
+
+    def fetch(self, keys: list) -> None:
+        """Fill the host tier in decode-step chunks (one peerRead, or one
+        striped storage batch, of FLEET_BATCH pages each)."""
+        for i in range(0, len(keys), FLEET_BATCH):
+            got = self.fleet.batch_get(keys[i:i + FLEET_BATCH])
+            require(all(v is not None for v in got),
+                    f"a page of chunk {i // FLEET_BATCH} is missing")
+
+    def close(self) -> None:
+        self.fleet.close(flush=False)
+        self.fio.close()
+        self.sc.close()
+        self.rpc.close()
+
+
+def fleet_check_blocks(name: str, got: list, want: list) -> None:
+    """Every block on the sources' device, equal to its source there."""
+    require(len(got) == len(want), f"{name}: {len(got)} blocks")
+    for i, (blk, w) in enumerate(zip(got, want)):
+        require(blk is not None and blk.device == w.device
+                and blk.dtype == w.dtype and blk.shape == w.shape
+                and torch.equal(blk.view(torch.int16), w.view(torch.int16)),
+                f"{name}: block {i} differs, on the card, from the page "
+                "that was put")
+
+
+def fleet_failover(ctl: FleetProcesses, host: FleetHost) -> dict:
+    """SIGKILL the kvd leader; meta creates and stats through all four
+    partitions (both meta servers) go on once a new leader takes over,
+    within FLEET_FAILOVER_S; the killed member restarts on its data
+    directory and catches up to the leader's commit index."""
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.metashard.partition import partition_of_dir
+
+    dirs, i = {}, 0
+    while len(dirs) < FLEET_PARTS:
+        d = f"/failover/d{i}"
+        dirs.setdefault(partition_of_dir(d, FLEET_PARTS), d)
+        i += 1
+    for d in dirs.values():
+        host.meta.mkdirs(d, recursive=True)
+    leader = ctl.kv_leader()
+    before = ctl.kv_status()[leader]
+    t0 = time.perf_counter()
+    ctl.kill(f"kvd{leader}")
+    first = None
+    deadline = time.monotonic() + FLEET_FAILOVER_S
+    while first is None:
+        try:
+            host.meta.create(f"{dirs[0]}/first", flags=OpenFlags.WRITE
+                             | OpenFlags.CREATE, client_id="fleet-host")
+            first = time.perf_counter() - t0
+        except Exception as e:
+            require(time.monotonic() < deadline, "meta did not answer "
+                    f"within {FLEET_FAILOVER_S:.0f} s of the kvd leader's "
+                    f"death: {e!r}")
+            time.sleep(0.05)
+    ids = {}
+    for pid, d in sorted(dirs.items()):
+        for j in range(4):
+            res = host.meta.create(f"{d}/f{j}", flags=OpenFlags.WRITE
+                                   | OpenFlags.CREATE,
+                                   client_id="fleet-host")
+            st = host.meta.stat(f"{d}/f{j}")
+            require(st.id == res.inode.id, f"{d}/f{j}: stat after create")
+            ids[f"{d}/f{j}"] = st.id
+    all_s = time.perf_counter() - t0
+    require(all_s < FLEET_FAILOVER_S, f"the meta ops took {all_s:.1f} s")
+    new_leader = ctl.kv_leader(exclude=(leader,))
+    require(new_leader != leader, "the dead member still leads")
+    ctl._kvd(leader)          # a new process on the same data directory
+    target = ctl.kv_status()[new_leader].commit_index
+    t1 = time.perf_counter()
+    sock_wait(lambda: ctl.kv_status().get(leader) is not None and
+              ctl.kv_status()[leader].commit_index >= target,
+              f"kvd {leader} to catch up to index {target}")
+    caught = time.perf_counter() - t1
+    after = ctl.kv_status()
+    return {"killed": leader, "new_leader": new_leader,
+            "term": [before.term, after[new_leader].term],
+            "first_meta_reply_s": first, "meta_ops_s": all_s,
+            "partitions": sorted(dirs), "catch_up_s": caught,
+            "catch_up_index": target,
+            "restarted": vars(after[leader])}
+
+
+def fleet_collector(ctl: FleetProcesses, legs: dict) -> dict:
+    """``aggQuery`` answers the serving.* series of the serving processes
+    with totals no lower than their legs' counter deltas, after two push
+    periods; ``sloStatus`` answers."""
+    from tpu3fs_torch.monitor.collector import (COLLECTOR_SERVICE_ID,
+                                                AggQueryReq, AggQueryRsp,
+                                                SloStatusReq, SloStatusRsp)
+    from tpu3fs_torch.rpc.net import RpcClient
+
+    want = {"serving.peer_miss": sum(r.peer_misses for r in legs.values()),
+            "serving.fill_coalesced": sum(r.coalesced for r in legs.values())}
+    cli = RpcClient()
+    try:
+        time.sleep(2.5 * FLEET_PUSH_S)
+
+        def totals():
+            rsp = cli.call(ctl.mon_addr, COLLECTOR_SERVICE_ID, 3,
+                           AggQueryReq(name="serving.", prefix=True,
+                                       window_s=3600.0), AggQueryRsp)
+            got = collections.Counter()
+            for row in rsp.rows:
+                got[row.name] += row.vsum
+            return got if all(got[k] >= v for k, v in want.items()) \
+                else None
+        got = sock_wait(totals, "the collector's serving.* totals", 60.0)
+        slo = cli.call(ctl.mon_addr, COLLECTOR_SERVICE_ID, 4,
+                       SloStatusReq(), SloStatusRsp)
+    finally:
+        cli.close()
+    return {"serving_totals": dict(got), "leg_deltas": want,
+            "slo_verdict": slo.verdict, "slo_rules": len(slo.rules)}
+
+
+def fleet(dev) -> dict:
+    """Phase 18: the deployment as processes (FleetProcesses) with this
+    script as the inference host (FleetHost), at phase 12's Llama-3.1-8B
+    page shapes. The script's kernel counts are zeroed before its steps
+    and read after (the checks' own launches taken out); every K1, K2 and
+    K3 call counted must be a kernel launch, none a plain version. The
+    serving and storage processes' launches are not visible here: each of
+    those processes is shown on the card, and the kvd members and the
+    collector shown off it. -> the script's launches."""
+    import tempfile
+
+    from tpu3fs_torch.kvcache.layout import encode_array, shard_path
+    from tpu3fs_torch.serving.service import ServingLoadReq
+    from tpu3fs_torch.utils.bufpool import GLOBAL_POOL
+
+    t_phase = phase("phase 18: the deployment as processes")
+    pages, sources = kv_pages(dev)
+    n_a, shared, own = KV_FULL
+    bt = KV_BLOCK_TOKENS
+    toks_a = list(range(n_a * bt))
+    toks_b = toks_a[:shared * bt] + [10_000_000 + t for t in range(own * bt)]
+    src_a = [sources[i] for i in range(n_a)]
+    src_own = [sources[n_a + i] for i in range(own)]
+    entry = len(encode_array(pages[0]))
+    steps, legs, uncounted, info = {}, {}, collections.Counter(), {}
+    ctl = host = None
+    problems = []
+
+    def step(name, fn, nbytes=0):
+        c0, t0 = read_counts(), time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        c1 = read_counts()
+        steps[name] = {"host_ms": ms, "launches": {
+            k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+        if nbytes:
+            steps[name]["GiB_s"] = nbytes / (1 << 30) / (ms / 1e3)
+        log(f"  {name:<26} host {ms:10.1f} ms  launches "
+            f"{steps[name]['launches']}")
+        return out
+
+    def leg(name, node_id, req, nbytes=0):
+        rsp = step(name, lambda: host.load(node_id, req), nbytes)
+        require(rsp.errors == 0 and rsp.ops == len(req.keys) * max(
+            1, req.repeat), f"{name}: {rsp.ops} ops, {rsp.errors} errors")
+        legs[name] = rsp
+        if nbytes:
+            steps[name]["serving_GiB_s"] = rsp.nbytes / (1 << 30) / max(
+                rsp.wall_us / 1e6, 1e-9)
+        steps[name]["reply"] = {k: v for k, v in vars(rsp).items()
+                                if k != "lat_us"}
+        return rsp
+
+    def not_counted(fn):
+        c0 = read_counts()
+        out = fn()
+        c1 = read_counts()
+        uncounted.update({k: c1[k] - c0[k] for k in c1})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            ctl = FleetProcesses(Path(tmp), "cuda" if dev.type == "cuda"
+                                 else "cpu")
+            log(f"  booted 13 processes in {ctl.boot_s:.1f} s")
+            host = FleetHost(ctl, dev)
+            keys_a = host.store.block_keys(toks_a)
+            keys_b = host.store.block_keys(toks_b)
+            load_keys = [f"fleet/load/{i}" for i in range(n_a)]
+            zero_counts()
+            # 1: serving process 61's write-through put leg, in decode-
+            # step batches (its payload is the wire's constant bytes)
+            leg("put_leg_61", 61, ServingLoadReq(
+                op="put", keys=load_keys, value_bytes=entry,
+                batch=FLEET_BATCH, write_through=True), n_a * entry)
+            # 2: the host stores A's pages write-through (K1, K2 here)
+            wrote = step("put_a_host", lambda: sum(
+                host.store.append_blocks(
+                    toks_a, pages[i:i + FLEET_BATCH], start_block=i,
+                    write_through=True)
+                for i in range(0, n_a, FLEET_BATCH)), n_a * entry)
+            require(wrote == n_a, f"the host stored {wrote} of A's pages")
+            # 3: serving process 61 fills its host tier with A: claimed
+            # storage fills (no peer holds A)
+            leg("fill_a_61_storage", 61, ServingLoadReq(
+                op="get", keys=keys_a, batch=FLEET_BATCH), n_a * entry)
+            require(legs["fill_a_61_storage"].storage_fills == n_a,
+                    "61 did not fill A from storage")
+            # 4: B's shared prefix onto the card, peer-filled from 61
+            host.fleet.tier.clear()
+            host.peers_are(61)
+            pool0 = GLOBAL_POOL.stats()["outstanding"]
+            c0 = host.fleet.counters()
+            step("fill_b_prefix_peer", lambda: host.fetch(keys_b[:shared]),
+                 shared * entry)
+            got = step("b_prefix_to_card", lambda: host.store.get_blocks(
+                toks_b, count=shared, device=dev))
+            c1 = host.fleet.counters()
+            info["peer_hits"] = c1["peer_hits"] - c0["peer_hits"]
+            require(info["peer_hits"] == shared and
+                    c1["storage_fills"] == c0["storage_fills"],
+                    f"B's prefix: {info['peer_hits']} peer hits of {shared}")
+            require(GLOBAL_POOL.stats()["outstanding"] == pool0,
+                    "the receive pool kept a peer reply's buffer")
+            fleet_check_blocks("b_prefix", got, src_a[:shared])
+            info["prefix_on_card_ms"] = (
+                steps["fill_b_prefix_peer"]["host_ms"]
+                + steps["b_prefix_to_card"]["host_ms"])
+            del got
+            # 5: B's own pages, write-through from the host (K1, K2 here)
+            wrote = step("put_b_own_host", lambda: sum(
+                host.store.append_blocks(
+                    toks_b, pages[n_a + i:n_a + i + FLEET_BATCH],
+                    start_block=shared + i, write_through=True)
+                for i in range(0, own, FLEET_BATCH)), own * entry)
+            require(wrote == own, f"the host stored {wrote} of B's pages")
+            # 6: 62 puts a key write-through (K1, K2 in 62); K concurrent
+            # misses of it in 62, whose host tier is dropped and whose peer
+            # has never seen it, are one claimed storage fill; then 62
+            # gets A with 61's
+            # host tier dropped (61 still holds A's inodes, and serves a
+            # peerRead through them when it answers within 62's deadline)
+            leg("put_viral_62", 62, ServingLoadReq(
+                op="put", keys=["fleet/viral"], value_bytes=entry,
+                write_through=True), entry)
+            leg("singleflight_62", 62, ServingLoadReq(
+                op="get", keys=["fleet/viral"], concurrency=FLEET_SF_K,
+                repeat=FLEET_SF_K, drop_host=True))
+            require(legs["singleflight_62"].storage_fills == 1 and
+                    legs["singleflight_62"].hits == FLEET_SF_K,
+                    f"{FLEET_SF_K} concurrent misses of one key made "
+                    f"{legs['singleflight_62'].storage_fills} storage fills")
+            leg("drop_61", 61, ServingLoadReq(op="get", keys=[],
+                                              drop_host=True))
+            leg("fill_a_62", 62, ServingLoadReq(
+                op="get", keys=keys_a, batch=FLEET_BATCH, drop_host=True),
+                n_a * entry)
+            r = legs["fill_a_62"]
+            require(r.hits == n_a and r.storage_fills + r.peer_hits == n_a,
+                    f"62's fills of A: {r}")
+            # the stored shards of two of A's entries and one of the put
+            # leg's, read back and held against twins encoded on the card
+            routing = ctl.admin.refresh_routing()
+            n_checked = 0
+            for key, body in ((keys_a[0], encode_array(pages[0])),
+                              (keys_a[n_a - 1], encode_array(pages[n_a - 1])),
+                              (load_keys[7], b"\xa5" * entry)):
+                inode = host.meta.stat(shard_path(host.kv.root, key))
+                n_checked += not_counted(lambda: sock_shards(
+                    host.sc, routing, inode, body, dev))
+                require(not_counted(lambda: host.kv.get(key)) == body,
+                        f"{key}: the stored entry differs")
+            info["shards_checked"] = n_checked
+            if dev.type == "cuda":
+                on = ctl.pid_of("storage") + ctl.pid_of("serving")
+                info["on_card"] = sock_on_card(on)
+                info["off_card"] = fleet_off_card(
+                    ctl.pid_of("kvd") + ctl.pid_of("monitor"), on)
+            # 7: a storage process dies; B's tail from storage, degraded
+            # (K1 here), its prefix from 62's host tier
+            ctl.fail(SOCK_IDS[-1])
+            host.fleet.tier.clear()
+            host.peers_are()
+            step("fill_b_tail_degraded", lambda: host.fetch(
+                keys_b[shared:]), own * entry)
+            host.peers_are(62)
+            step("fill_b_prefix_peer_62", lambda: host.fetch(
+                keys_b[:shared]), shared * entry)
+            got = step("b_to_card", lambda: host.store.get_blocks(
+                toks_b, count=shared + own, device=dev))
+            fleet_check_blocks("b_after_failure", got,
+                               src_a[:shared] + src_own)
+            del got
+            # 8: the kvd leader dies; meta goes on after a new leader
+            info["failover"] = step("kvd_failover",
+                                    lambda: fleet_failover(ctl, host))
+            counts = read_counts()
+            # 9: the collector's rollups of the serving processes' pushes
+            info["collector"] = fleet_collector(ctl, {
+                k: legs[k] for k in ("fill_a_62", "singleflight_62")})
+            info["serving_stats"] = {
+                n: vars(host.peers.stats(ctl.serving[n]))
+                for n in FLEET_SERVING}
+        finally:
+            if host is not None:
+                host.close()
+            if ctl is not None:
+                problems = ctl.close()
+        require(not problems, f"phase 18: {problems}")
+    counts = {n: c - uncounted[n] for n, c in counts.items()}
+    require_main_path("the deployment as processes", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    e2e = {
+        "put_leg_61_GiB_s": steps["put_leg_61"]["serving_GiB_s"],
+        "put_host_GiB_s": steps["put_a_host"]["GiB_s"],
+        "peer_fill_GiB_s": steps["fill_b_prefix_peer"]["GiB_s"],
+        "storage_fill_61_GiB_s":
+            steps["fill_a_61_storage"]["serving_GiB_s"],
+        "fill_a_62_GiB_s": steps["fill_a_62"]["serving_GiB_s"],
+        "degraded_fill_GiB_s": steps["fill_b_tail_degraded"]["GiB_s"],
+        "prefix_on_card_ms": info["prefix_on_card_ms"],
+        "failover_first_meta_reply_s":
+            info["failover"]["first_meta_reply_s"],
+        "boot_s": ctl.boot_s}
+    log(json.dumps({"fleet": e2e, "steps": steps, "info": info,
+                    "launches": counts, "card": card_line(),
+                    "seconds": time.perf_counter() - t_phase},
+                   default=str))
+    log(f"fleet: launches {counts} ({time.perf_counter() - t_phase:.1f} s)")
+    return {n: counts[n] for n in counters()}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
@@ -4494,6 +5116,9 @@ def main() -> int:
     if sys.argv[1:] == ["--sockets"]:
         sockets(dev, train_data(dev, TRAIN_FULL))
         return 0
+    if sys.argv[1:] == ["--fleet"]:
+        fleet(dev)
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -4515,8 +5140,9 @@ def main() -> int:
     # once lost one of its 30 kernel records
     paths["fetch"], fetch_card = fetch(dev, train_full)
     paths["sockets"] = sockets(dev, train_full)
+    paths["fleet"] = fleet(dev)
     for row in kernels:
-        for path in ("fetch", "sockets"):
+        for path in ("fetch", "sockets", "fleet"):
             row["launches_by_path"][path] = paths[path][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)

@@ -9,9 +9,11 @@ a file through ``MetaRpcClient`` and ``StorageClient`` over
 keeps writing after a node's death. A storage node started as its own
 process (``python -m tpu3fs_torch.bin.storage_main --device cpu``) joins
 an in-process mgmtd, serves a write and a read and exits 0 on SIGTERM
-within 10 s. The options the port does not have raise
-``NotImplementedError`` naming their ROADMAP item, and an app with no
-card and no device raises at construction. A received bulk segment is
+within 10 s. The options the port does not have (the USRBIO rings and
+the native transport and engine) raise ``NotImplementedError`` naming
+their ROADMAP item; the network KV (``--kv``, one kvd or a group), the
+sharded metadata plane (``--meta-partitions``) and the in-memory stubs
+serve. An app with no card and no device raises at construction. A received bulk segment is
 copied on install and never written. Every wait is bounded and no
 cluster thread or child process is left behind."""
 
@@ -240,21 +242,163 @@ def test_storage_node_process_joins_serves_and_stops_on_sigterm(tmp_path):
     assert "Traceback" not in text, text
 
 
+def _serving_app(flags):
+    from tpu3fs_torch.bin.serving_main import ServingApp
+
+    return ServingApp(flags, **CPU)
+
+
+def _kv_app(flags):
+    from tpu3fs_torch.bin.kv_main import KvApp
+
+    return KvApp(["--rpc", "native"] + flags, **CPU).init_server()
+
+
 @pytest.mark.parametrize("build,item", [
     (lambda: MgmtdApp(["--rpc", "native"], **CPU).init_server(), "M6a-3"),
     (lambda: StorageApp(["--config.engine=native"], **CPU), "M6a-3"),
     (lambda: StorageApp(["--config.usrbio=1"], **CPU), "M6a-3"),
-    (lambda: MgmtdApp(["--kv", "127.0.0.1:1"], **CPU), "M6a-2b"),
-    (lambda: MetaApp(["--kv", "127.0.0.1:1"], **CPU), "M6a-2b"),
-    (lambda: engine_from_flag("127.0.0.1:1,127.0.0.1:2"), "M6a-2b"),
-    (lambda: MetaApp(["--meta-partitions", "3"], **CPU), "M6a-2b"),
-    (lambda: StubFactory("inmem"), "M6a-2b"),
     (lambda: StubFactory("native"), "M6a-3"),
-], ids=["rpc-native", "engine-native", "usrbio", "mgmtd-kv", "meta-kv",
-        "kv-group", "meta-partitions", "stubs-inmem", "stubs-native"])
+    (lambda: _serving_app(["--config.usrbio=1"]), "M6a-3"),
+    (lambda: _serving_app(["--config.peer_usrbio=1"]), "M6a-3"),
+    (lambda: _kv_app([]), "M6a-3"),
+], ids=["rpc-native", "engine-native", "usrbio", "stubs-native",
+        "serving-usrbio", "serving-peer-usrbio", "kv-rpc-native"])
 def test_unported_options_raise(build, item):
     with pytest.raises(NotImplementedError, match=item):
         build()
+
+
+@pytest.fixture
+def kvd():
+    """A port kvd on port 0: the network KV the ``--kv`` flags name."""
+    from tpu3fs_torch.kv.service import KvService, bind_kv_service
+    from tpu3fs_torch.rpc.net import RpcServer
+
+    svc = KvService()
+    server = RpcServer(port=0)
+    bind_kv_service(server, svc)
+    server.start()
+    try:
+        yield f"127.0.0.1:{server.port}", svc
+    finally:
+        server.stop()
+        svc.close()
+
+
+def _mgmtd_kv(addr, svc):
+    """mgmtd keeps its state in the kvd: a second mgmtd on the same
+    ``--kv`` sees the first one's chain table."""
+    first = MgmtdApp(["--node-id", "1", "--kv", addr], **CPU)
+    first.run_background()
+    try:
+        admin = MgmtdAdminRpcClient((first.info.hostname, first.info.port))
+        admin.create_target(1001, node_id=101)
+        admin.upload_chain(900, [1001])
+        admin.upload_chain_table(1, [900])
+    finally:
+        first.stop()
+        assert first.join(10.0)
+    assert svc.engine.version > 0
+    second = MgmtdApp(["--node-id", "1", "--kv", addr], **CPU)
+    second.run_background()
+    try:
+        admin = MgmtdAdminRpcClient((second.info.hostname,
+                                     second.info.port))
+        assert admin.refresh_routing().chain_tables[1].chain_ids == [900]
+    finally:
+        second.stop()
+        assert second.join(10.0)
+
+
+def _meta_kv(addr, svc):
+    """Two meta apps on one ``--kv`` share one namespace."""
+    from tpu3fs_torch.meta.store import MetaStore
+
+    apps = [MetaApp(["--kv", addr], **CPU) for _ in range(2)]
+    res = MetaStore(apps[0].engine).create("/shared", client_id="a")
+    assert MetaStore(apps[1].engine).stat("/shared").id == res.inode.id
+
+
+def _kv_group(addr, svc):
+    """``--kv`` of several addresses is a kvd group: a transaction rides
+    its leader."""
+    import tempfile
+
+    from tpu3fs_torch.kv.kv import with_transaction
+    from tpu3fs_torch.kv.remote import ReplicatedRemoteKVEngine
+    from torch_kvd_group import Group
+
+    with tempfile.TemporaryDirectory() as tmp:
+        g = Group(Path(tmp), {1: "tpu3fs_torch", 2: "tpu3fs_torch",
+                              3: "tpu3fs_torch"})
+        try:
+            g.wait_leader()
+            flag = ",".join(f"{h}:{p}" for _, (h, p) in sorted(
+                g.peers.items()))
+            eng = engine_from_flag(flag)
+            assert isinstance(eng, ReplicatedRemoteKVEngine)
+            with_transaction(eng, lambda tx: tx.set(b"g", b"1"))
+            assert with_transaction(eng, lambda tx: tx.get(b"g")) == b"1"
+        finally:
+            g.stop()
+
+
+def _meta_partitions(addr, svc):
+    """``--meta-partitions 3`` serves the sharded store: creates through
+    the partition-routed client land with their partition's inode tag."""
+    from tpu3fs_torch.metashard import ShardedMetaStore, partition_of_inode
+    from tpu3fs_torch.metashard.partition import partition_of_path
+
+    mgmtd = MgmtdApp(["--node-id", "1", "--config.meta_partitions=3",
+                      "--config.tick_interval_s=0.2"], **CPU)
+    mgmtd.run_background()
+    meta = None
+    try:
+        maddr = f"{mgmtd.info.hostname}:{mgmtd.info.port}"
+        meta = MetaApp(["--node-id", "201", "--mgmtd", maddr, "--kv", addr,
+                        "--meta-partitions", "3",
+                        "--heartbeat_interval", "0.2"], **CPU)
+        meta.run_background()
+        assert isinstance(meta.meta, ShardedMetaStore)
+        admin = MgmtdAdminRpcClient((mgmtd.info.hostname, mgmtd.info.port))
+        _wait(lambda: len(admin.refresh_routing().meta_partitions) == 3,
+              30.0, "the partition table")
+        mc = MetaRpcClient([(meta.info.hostname, meta.info.port)],
+                           client_id="parts", nparts=3)
+        for d in ("/p0", "/p1", "/p2", "/p3"):
+            mc.mkdirs(d)
+            ino = mc.create(f"{d}/f", flags=OpenFlags.WRITE).inode.id
+            assert partition_of_inode(ino, 3) == partition_of_path(
+                f"{d}/f", 3)
+    finally:
+        if meta is not None:
+            meta.stop()
+            assert meta.join(10.0)
+        mgmtd.stop()
+        assert mgmtd.join(10.0)
+
+
+def _stubs_inmem(addr, svc):
+    stubs = StubFactory("inmem")
+    sc = stubs.storage_client()
+    assert sc.write_chunk(7, ChunkId(1, 0), 0, b"in memory",
+                          chunk_size=4096).ok
+    assert sc.read_chunk(7, ChunkId(1, 0)).data == b"in memory"
+    meta = stubs.meta_client()
+    res = meta.create("/f", client_id="t")
+    assert meta.stat("/f").id == res.inode.id
+
+
+@pytest.mark.parametrize("run", [_mgmtd_kv, _meta_kv, _kv_group,
+                                 _meta_partitions, _stubs_inmem],
+                         ids=["mgmtd-kv", "meta-kv", "kv-group",
+                              "meta-partitions", "stubs-inmem"])
+def test_ported_options_work(kvd, run):
+    """The options that raised until the rest of the service layer was
+    ported (the network KV, its group, the sharded metadata plane and the
+    in-memory stubs) now serve."""
+    run(*kvd)
 
 
 def test_ring_request_raises(monkeypatch):
@@ -275,7 +419,16 @@ def test_empty_kv_flag_is_the_memory_engine():
     assert isinstance(engine_from_flag(""), MemKVEngine)
 
 
-@pytest.mark.parametrize("cls", [MgmtdApp, StorageApp, MetaApp])
+def _new_apps():
+    from tpu3fs_torch.bin.kv_main import KvApp
+    from tpu3fs_torch.bin.monitor_main import MonitorApp
+    from tpu3fs_torch.bin.serving_main import ServingApp
+
+    return [KvApp, MonitorApp, ServingApp]
+
+
+@pytest.mark.parametrize("cls", [MgmtdApp, StorageApp, MetaApp] + _new_apps(),
+                         ids=lambda c: c.__name__)
 def test_app_without_a_card_or_a_device_raises(cls):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

@@ -1,6 +1,7 @@
 """Rules the port keeps: tpu3fs_torch and chip_smoke.py import neither jax
-nor tpu3fs; importing the package (its transport, apps and binaries
-included) touches no CUDA and no triton; entry points default to the card
+nor tpu3fs; importing the package (its transport, service layer, apps and
+binaries included) touches no CUDA and no triton, and the kvd and the
+collector boot without a CUDA context; entry points default to the card
 and raise without one; the kernel build directory is git-ignored, and
 processes that load the library at once on a fresh tree run nvcc once."""
 
@@ -153,6 +154,54 @@ def test_import_transport_apps_and_binaries_touches_no_cuda():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.split() == ["False", "False", "0"]
+
+
+def test_import_service_layer_touches_no_cuda():
+    """The rest of the service layer (the kvd and its group, the sharded
+    metadata plane, the collector, the serving socket half and every
+    binary) imports without touching CUDA or triton."""
+    code = ("import sys, torch, tpu3fs_torch.kv, tpu3fs_torch.kv.service, "
+            "tpu3fs_torch.kv.replica, tpu3fs_torch.kv.remote, "
+            "tpu3fs_torch.metashard, tpu3fs_torch.metashard.store, "
+            "tpu3fs_torch.meta.distributor, tpu3fs_torch.monitor, "
+            "tpu3fs_torch.monitor.agg, tpu3fs_torch.monitor.slo, "
+            "tpu3fs_torch.monitor.collector, tpu3fs_torch.serving, "
+            "tpu3fs_torch.serving.service, tpu3fs_torch.client.inmem, "
+            "tpu3fs_torch.bin.kv_main, tpu3fs_torch.bin.monitor_main, "
+            "tpu3fs_torch.bin.serving_main, tpu3fs_torch.bin.mgmtd_main, "
+            "tpu3fs_torch.bin.meta_main, tpu3fs_torch.bin.storage_main; "
+            "print(torch.cuda.is_initialized(), 'triton' in sys.modules, "
+            "tpu3fs_torch.kernels.library.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "0"]
+
+
+_BOOT_KVD_AND_COLLECTOR = r"""
+import sys, torch
+from tpu3fs_torch.bin.kv_main import KvApp
+from tpu3fs_torch.bin.monitor_main import MonitorApp
+out = sys.argv[1]
+apps = [KvApp(["--device", "cpu"]),
+        MonitorApp(["--device", "cpu", f"--config.out_path={out}"])]
+for app in apps:
+    app.run_background()
+booted = [app.info.port > 0 for app in apps]
+for app in apps:
+    app.stop()
+print(all(booted), all(app.join(10.0) for app in apps),
+      torch.cuda.is_initialized())
+"""
+
+
+def test_kvd_and_collector_boot_without_cuda(tmp_path):
+    """``KvApp`` and ``MonitorApp`` do no device work: after construction
+    and boot their process holds no CUDA context."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BOOT_KVD_AND_COLLECTOR,
+         str(tmp_path / "samples.jsonl")], cwd=ROOT, check=True,
+        capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["True", "True", "False"]
 
 
 # one child: waits for the parent's go, then loads the library from a

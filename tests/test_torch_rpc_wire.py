@@ -1,7 +1,11 @@
 """The port's RPC wire against the JAX package's, byte for byte.
 
 Every wire dataclass of ``tpu3fs/rpc/services.py`` (and the envelope,
-``MessagePacket``) is built in both packages from one seed, field by field
+``MessagePacket``), and of ``kv/service.py`` (the kvd and its WAL
+record), ``kv/replica.py`` (the kvd group's Raft messages and log
+entries), ``monitor/collector.py`` (sample push, ``aggQuery``,
+``sloStatus``) and ``serving/service.py`` (the peer-fill protocol), is
+built in both packages from one seed, field by field
 from the type hints (nested dataclasses, lists, dicts, optionals and
 enums included); the two ``serialize`` calls must give equal bytes, and
 each package must decode the other's bytes. The bulk section codec
@@ -18,6 +22,8 @@ import typing
 import numpy as np
 import pytest
 
+import importlib
+
 import tpu3fs.rpc.net as jax_net
 import tpu3fs.rpc.serde as jax_serde
 import tpu3fs.rpc.services as jax_services
@@ -25,17 +31,34 @@ import tpu3fs_torch.rpc.net as port_net
 import tpu3fs_torch.rpc.serde as port_serde
 import tpu3fs_torch.rpc.services as port_services
 
+# the other modules whose dataclasses cross the wire (or a kvd's files),
+# each named by its path under the package
+WIRE_MODULES = ("kv.service", "kv.replica", "monitor.collector",
+                "serving.service")
+
+
+def _module_classes(module):
+    return {name for name, obj in vars(module).items()
+            if dataclasses.is_dataclass(obj) and isinstance(obj, type)
+            and obj.__module__ == module.__name__}
+
 
 def _wire_classes():
-    names = [name for name, obj in vars(jax_services).items()
-             if dataclasses.is_dataclass(obj) and isinstance(obj, type)
-             and obj.__module__ == jax_services.__name__]
-    return sorted(names) + ["net.MessagePacket", "net.Timestamps"]
+    names = sorted(_module_classes(jax_services)) + ["net.MessagePacket",
+                                                    "net.Timestamps"]
+    for mod in WIRE_MODULES:
+        names += sorted(f"{mod}.{name}" for name in _module_classes(
+            importlib.import_module(f"tpu3fs.{mod}")))
+    return names
 
 
 def _resolve(pkg_services, pkg_net, name):
     if name.startswith("net."):
         return getattr(pkg_net, name[4:])
+    mod, _, cls = name.rpartition(".")
+    if mod:
+        root = pkg_services.__name__.split(".")[0]
+        return getattr(importlib.import_module(f"{root}.{mod}"), cls)
     return getattr(pkg_services, name)
 
 
@@ -96,10 +119,12 @@ def test_wire_type_serializes_equal(name, seed):
 
 
 def test_every_wire_type_of_the_port_is_held():
-    """The port declares no wire dataclass the JAX package lacks."""
-    port = {name for name, obj in vars(port_services).items()
-            if dataclasses.is_dataclass(obj) and isinstance(obj, type)
-            and obj.__module__ == port_services.__name__}
+    """The port declares no wire dataclass the JAX package lacks, in
+    ``rpc/services.py`` or in any other module of the wire."""
+    port = _module_classes(port_services)
+    for mod in WIRE_MODULES:
+        port |= {f"{mod}.{name}" for name in _module_classes(
+            importlib.import_module(f"tpu3fs_torch.{mod}"))}
     assert port == set(_wire_classes()) - {"net.MessagePacket",
                                            "net.Timestamps"}
 

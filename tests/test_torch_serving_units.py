@@ -5,7 +5,7 @@ port's copy, ``tpu3fs_torch.serving``, on the port's ``Fabric(device=
 rendezvous ranking (the port's ranking equal to the JAX package's on the
 same keys), the fill ladder's demotions and coalescing, refcounted
 eviction, the serving host's zero-hole check and its load legs; and the
-port's unported halves raising. Tolerance 0."""
+port's socket half carrying a peer fill. Tolerance 0."""
 
 import importlib
 import threading
@@ -381,11 +381,40 @@ def test_host_load_legs(pkg, fab, op, batch):
         _close(fleets)
 
 
-# -- the port's unported halves -------------------------------------------------
-def test_port_socket_halves_raise():
+# -- the port's socket half ------------------------------------------------------
+def test_port_socket_halves_work():
+    """The port's ``bind_serving_service`` and ``ServingPeerClient`` (over
+    sockets; the shm rings are ROADMAP M6a-3 and raise) carry a peer fill
+    between two fleet members over loopback."""
+    from tpu3fs_torch.client.hedging import HedgeController
+    from tpu3fs_torch.rpc.net import RpcClient, RpcServer
     from tpu3fs_torch.serving import ServingPeerClient, bind_serving_service
 
-    with pytest.raises(NotImplementedError, match="M6a"):
-        ServingPeerClient(object())
-    with pytest.raises(NotImplementedError, match="M6a"):
-        bind_serving_service(object(), object())
+    pkg = _pkg("tpu3fs_torch")
+    with pytest.raises(NotImplementedError, match="M6a-3"):
+        ServingPeerClient(object(), usrbio=True)
+    fab = pkg.fabric.Fabric(pkg.fabric.SystemSetupConfig(
+        num_storage_nodes=2, num_chains=4, num_replicas=2, chunk_size=4096),
+        device="cpu")
+    server, rpc, fleets = RpcServer(port=0), RpcClient(), {}
+    try:
+        loop = LoopbackPeers(pkg.service)
+        # a socket round trip under a loaded test run can outlast the
+        # default 5 ms hedge floor, which would demote the fill to storage
+        fleets, _ = _pair(pkg, fab, peers=loop, hedge=HedgeController(
+            delay_floor_ms=5000.0))
+        bind_serving_service(server, loop.hosts[1])
+        server.start()
+        ep = fleets[2].directory._routing().serving[1]
+        ep.host, ep.port = "127.0.0.1", server.port
+        peers = ServingPeerClient(rpc)
+        fleets[2].peers = peers
+        fleets[1].put("blk/a", b"\x5a" * 3000)
+        assert fleets[2].get("blk/a") == b"\x5a" * 3000
+        assert fleets[2].counters()["peer_hits"] == 1
+        assert peers.stats(ep).keys_served == 1
+    finally:
+        server.stop()
+        rpc.close()
+        _close(fleets)
+        fab.close()

@@ -72,7 +72,7 @@ def _moves(M, seed, P):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_swap_score_plain_matches_jax(name):
     M, dom, cap, P = CASES[name]
-    state = swap_state(M, dom, cap)
+    state = swap_state(M, dom, cap, "cpu")
     moves, moves_t = _moves(M, seed=len(name), P=P)
     got = swap_score_plain(state, moves_t)
     assert got.dtype == torch.int32 and got.shape == (3, P)
@@ -154,7 +154,7 @@ def test_swap_apply_plain_keeps_the_state_a_fresh_build(name):
     and the scores equal what the scorer gave the move."""
     M, dom, cap, n_moves = APPLY_CASES[name]
     M = M.copy()
-    state = swap_state(M, dom, cap)
+    state = swap_state(M, dom, cap, "cpu")
     rng = np.random.default_rng(len(name))
     maxes = set()
     for _ in range(n_moves):
@@ -166,7 +166,7 @@ def test_swap_apply_plain_keeps_the_state_a_fresh_build(name):
         swap_apply_plain(state, moves_t, p)
         g1, g2, a, c = (int(x[p]) for x in moves[:4])
         M[g1, a], M[g1, c], M[g2, c], M[g2, a] = 0, 1, 0, 1
-        fresh = swap_state(M, dom, cap)
+        fresh = swap_state(M, dom, cap, "cpu")
         _assert_state_equal(state, fresh)
         over, mx, ssq = (int(x) for x in fresh.score)
         assert scored.tolist() == [over, mx, np.int64(ssq).astype(np.int32)]
@@ -176,8 +176,8 @@ def test_swap_apply_plain_keeps_the_state_a_fresh_build(name):
 
 def test_swap_apply_leaves_the_state_alone_for_a_move_that_does_not_fit():
     M = _duplicated(8, 10, 4, 3)
-    state = swap_state(M, _racks(10, 5), 1)
-    fresh = swap_state(M, _racks(10, 5), 1)
+    state = swap_state(M, _racks(10, 5), 1, "cpu")
+    fresh = swap_state(M, _racks(10, 5), 1, "cpu")
     moves, moves_t = _moves(M, seed=1, P=32)
     invalid = int(np.argmin(moves.valid))
     assert not moves.valid[invalid]
@@ -186,7 +186,7 @@ def test_swap_apply_leaves_the_state_alone_for_a_move_that_does_not_fit():
     valid = int(np.argmax(moves.valid))
     swap_apply(state, moves_t, valid)
     applied = swap_state(port_solver._materialise(M, moves)[valid],
-                         _racks(10, 5), 1)
+                         _racks(10, 5), 1, "cpu")
     _assert_state_equal(state, applied)
     swap_apply(state, moves_t, valid)  # a second time: it no longer fits
     _assert_state_equal(state, applied)
@@ -194,7 +194,7 @@ def test_swap_apply_leaves_the_state_alone_for_a_move_that_does_not_fit():
 
 def test_swap_kernels_on_cpu_take_the_plain_versions():
     M = _table(20, 10, 3, 4)
-    state = swap_state(M)
+    state = swap_state(M, device="cpu")
     moves, moves_t = _moves(M, seed=2, P=8)
     counts = (swap_score_plain.calls, swap_score.launches,
               swap_apply_plain.calls, swap_apply.launches)
@@ -210,7 +210,7 @@ def test_swap_kernels_on_cpu_take_the_plain_versions():
 
 def test_swap_wrappers_reject_what_the_kernels_do_not_take():
     M = _table(20, 10, 3, 4)
-    state = swap_state(M)
+    state = swap_state(M, device="cpu")
     _, moves_t = _moves(M, seed=2, P=8)
     with pytest.raises(TypeError):
         swap_score(state, moves_t.to(torch.int64))
@@ -222,12 +222,12 @@ def test_swap_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(IndexError):
         swap_apply(state, moves_t, 8)
     with pytest.raises(TypeError):
-        swap_state(M.astype(np.int32))
+        swap_state(M.astype(np.int32), device="cpu")
     with pytest.raises(ValueError, match="0/1"):
-        swap_state(2 * M)
+        swap_state(2 * M, device="cpu")
     with pytest.raises(ValueError, match="domain_of_node"):
-        swap_state(M, np.zeros(9, dtype=np.int32), 1)
-    bad = swap_state(M)
+        swap_state(M, np.zeros(9, dtype=np.int32), 1, "cpu")
+    bad = swap_state(M, device="cpu")
     bad.G = bad.G.to(torch.int64)
     with pytest.raises(TypeError, match="state.G"):
         swap_score(bad, moves_t)
@@ -236,7 +236,7 @@ def test_swap_wrappers_reject_what_the_kernels_do_not_take():
 def test_swap_state_is_the_gram_of_the_table():
     M = _table(50, 20, 5, 13)
     dom = _racks(20, 4)
-    state = swap_state(M, dom, 1)
+    state = swap_state(M, dom, 1, "cpu")
     C = gram_np(M)
     off = C - np.diag(np.diag(C))
     assert np.array_equal(state.G.numpy(), off)
@@ -248,3 +248,23 @@ def test_swap_state_is_the_gram_of_the_table():
     assert np.array_equal(state.counts.numpy(), counts)
     over = int(np.maximum(counts - 1, 0).sum())
     assert state.score.tolist() == [over, *port_solver._score_np(M)]
+
+
+def test_swap_state_takes_the_card_unless_told_otherwise():
+    """``device=None`` resolves to the card, as every entry point does: with
+    no card it raises, and ``device="cpu"`` builds the same state as the
+    CPU default of earlier versions did."""
+    M = _table(50, 20, 5, 13)
+    dom = _racks(20, 4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            swap_state(M, dom, 1)
+    state = swap_state(M, dom, 1, device="cpu")
+    assert state.device == torch.device("cpu")
+    C = gram_np(M)
+    onehot = np.eye(4)[dom]
+    counts = (M.astype(np.float64) @ onehot).astype(np.int32)
+    assert np.array_equal(state.M.numpy(), M)
+    assert np.array_equal(state.G.numpy(), C - np.diag(np.diag(C)))
+    assert np.array_equal(state.counts.numpy(), counts)
+    assert state.cap == 1

@@ -6,8 +6,11 @@ every app takes a keyword ``device`` (else the ``--device`` flag), which
 when no card is present and none was asked for; the app's storage
 services, targets, clients and rebuild workers run their checksums and
 codecs there. ``join`` waits, with a bound, for a ``run_background`` app
-to finish stopping. ``--rpc native`` (the C++ transport) is not ported
-(ROADMAP M6a-3) and raises ``NotImplementedError``.
+to finish stopping. A blocking ``run`` installs its SIGTERM handler
+before the server answers (the JAX package's after), so a SIGTERM that
+follows the first reply stops the app instead of killing the process.
+``--rpc native`` (the C++ transport) is not ported (ROADMAP M6a-3) and
+raises ``NotImplementedError``.
 
 Re-expresses the reference's app framework (src/common/app/ApplicationBase,
 TwoPhaseApplication.h:36-103, OnePhaseApplication.h, src/core/app/
@@ -290,13 +293,16 @@ class ApplicationBase:
             return ""
 
     def run(self, *, block: bool = True) -> "ApplicationBase":
+        if block:
+            # before the server answers: a SIGTERM that follows the first
+            # reply must stop the app, not kill the process
+            self._install_signal_handlers()
         self.init_common_components()
         self.init_server()
         self.start_server()
         self._start_memory_monitor()
         self._start_monitor_push()
         if block:
-            self._install_signal_handlers()
             self.wait()
         return self
 
@@ -643,6 +649,8 @@ class TwoPhaseApplication(ApplicationBase):
                 pass
 
     def run(self, *, block: bool = True) -> "TwoPhaseApplication":
+        if block:
+            self._install_signal_handlers()  # before the server answers
         self.init_common_components()
         self.launcher_phase()
         self.init_server()
@@ -657,6 +665,5 @@ class TwoPhaseApplication(ApplicationBase):
         self._start_memory_monitor()
         self._start_monitor_push()
         if block:
-            self._install_signal_handlers()
             self.wait()
         return self

@@ -3,11 +3,11 @@
 The port's own copy of ``tpu3fs/bin/meta_main.py``. ``MetaApp`` takes a
 keyword ``device`` (else ``--device``, default ``cuda``): its file client,
 which removes a collected file's chunks and reads a file's length, runs
-its codec there. Not ported yet: the sharded store (``--meta-partitions``
-and a published partition table; ``metashard/store.py``) and ``--kv``
-(the network KV engines), both ROADMAP M6a-2b; each raises
-``NotImplementedError``. Run it as ``python -m
-tpu3fs_torch.bin.meta_main --node-id N --mgmtd HOST:PORT``.
+its codec there. ``--kv`` names the shared network KV (a kvd, or a kvd
+group as ``id=h:p,...`` by the members' node ids), and ``--meta-partitions N`` serves the
+sharded store (``metashard/store.py``). Run it as ``python -m
+tpu3fs_torch.bin.meta_main --node-id N --mgmtd HOST:PORT [--kv ...]
+[--meta-partitions N]``.
 
 Two-phase boot; serves the MetaSerde ops over a transactional KV engine.
 File-length-on-close and truncate go through a storage client over the RPC
@@ -35,11 +35,6 @@ from tpu3fs_torch.qos.core import QosConfig
 from tpu3fs_torch.utils.fault_injection import FaultPlaneConfig
 from tpu3fs_torch.tenant.quota import TenantConfig
 
-
-_SHARDED_NOT_PORTED = (
-    "the sharded metadata plane (metashard/store.py ShardedMetaStore, "
-    "--meta-partitions) is not ported (ROADMAP M6a-2b); the port's meta "
-    "server serves one unpartitioned MetaStore")
 
 
 class MetaAppConfig(Config):
@@ -74,9 +69,6 @@ class MetaApp(TwoPhaseApplication):
     def __init__(self, argv: Optional[List[str]] = None, *, engine=None,
                  device=None):
         super().__init__(argv, device=device)
-        flag = self.flag("meta_partitions", "")
-        if flag and int(flag) > 0:
-            raise NotImplementedError(_SHARDED_NOT_PORTED)
         # --kv host:port points at the shared network KV service (the
         # FoundationDB role; tpu3fs/bin/kv_main.py) so multiple meta servers
         # share one namespace; without it this instance owns a private MemKV
@@ -84,6 +76,8 @@ class MetaApp(TwoPhaseApplication):
         self.engine = engine or self._make_engine()
         self.meta: Optional[MetaStore] = None
         self._fio: Optional[FileIoClient] = None
+        self._peer_rpc = None
+        self._nparts = 0
 
     def _make_engine(self):
         from tpu3fs_torch.kv.remote import engine_from_flag
@@ -109,6 +103,37 @@ class MetaApp(TwoPhaseApplication):
         si = self._file_client().storage.space_info()
         return si.capacity, si.used
 
+    def _owned_partitions(self):
+        """The set of partition ids assigned to THIS node by mgmtd, or
+        None while the table is unpublished (own everything — single-node
+        boot before the assigner's first tick)."""
+        try:
+            ri = self.mgmtd_client.routing()
+        except Exception:
+            return None
+        if not ri.meta_partitions:
+            return None
+        return {pid for pid, row in ri.meta_partitions.items()
+                if row.node_id == self.info.node_id}
+
+    def _peer_client(self):
+        """MetaRpcClient over the cluster's META nodes, routed by the
+        partition table — carries two-phase participant RPCs
+        (renamePrepare/renameFinish) to peer owners."""
+        from tpu3fs_torch.rpc.net import RpcClient
+        from tpu3fs_torch.rpc.services import MetaRpcClient
+
+        ri = self.mgmtd_client.routing()
+        addrs = [(n.host, n.port) for n in ri.nodes.values()
+                 if n.type == NodeType.META and n.host]
+        if self._peer_rpc is None:
+            self._peer_rpc = RpcClient()
+        return MetaRpcClient(
+            addrs or [(self.info.hostname, self.info.port)],
+            self._peer_rpc, client_id=f"meta-{self.info.node_id}",
+            token=self.flag("token", ""), mgmtd=self.mgmtd_client,
+            nparts=self._nparts)
+
     def build_services(self, server: RpcServer) -> None:
         routing = self.mgmtd_client.refresh_routing()
         table_id = self.config.get("chain_table_id")
@@ -121,14 +146,44 @@ class MetaApp(TwoPhaseApplication):
             default_chunk_size=self.config.get("chunk_size"),
             default_stripe=self.config.get("stripe"),
         )
-        # a sharded fleet (a published partition table, or
-        # --meta-partitions N) needs ShardedMetaStore: not ported yet
+        # --meta-partitions N: serve the sharded store (metashard/).
+        # Unset = the published table's width when mgmtd has one (a sharded
+        # fleet restart), else the legacy single-partition MetaStore —
+        # sharding is opt-in, so multi-meta deployments without the flag
+        # keep the any-op-anywhere shape. 0 = legacy explicitly.
         flag = self.flag("meta_partitions", "")
+        self._peer_rpc = None
         nparts = int(flag) if flag else len(routing.meta_partitions)
-        if nparts > 0:
-            raise NotImplementedError(_SHARDED_NOT_PORTED)
-        self.meta = MetaStore(
-            self.engine, ChainAllocator(table_id, chains), **hooks)
+        if nparts <= 0:
+            self.meta = MetaStore(
+                self.engine, ChainAllocator(table_id, chains), **hooks)
+        else:
+            from tpu3fs_torch.metashard import ShardedMetaStore
+
+            self._nparts = nparts
+
+            def peer_prepare(pid, intent, dst_path):
+                owned = self._owned_partitions()
+                if owned is None or pid in owned:
+                    # participant partition is local: apply in-process
+                    from tpu3fs_torch.meta.store import ROOT_USER
+
+                    self.meta.twophase_prepare(intent, dst_path, ROOT_USER)
+                else:
+                    self._peer_client().rename_prepare(pid, intent, dst_path)
+
+            def peer_finish(pid, txn_id):
+                owned = self._owned_partitions()
+                if owned is None or pid in owned:
+                    self.meta.twophase_finish(txn_id)
+                else:
+                    self._peer_client().rename_finish(pid, txn_id)
+
+            self.meta = ShardedMetaStore(
+                self.engine, ChainAllocator(table_id, chains),
+                nparts=self._nparts, owner_view=self._owned_partitions,
+                peer_prepare=peer_prepare, peer_finish=peer_finish,
+                **hooks)
         # --auth 1: enforce bearer-token authentication via the UserStore
         # in the shared KV (ref src/core/user; tokens resolved server-side)
         user_store = None
@@ -139,8 +194,26 @@ class MetaApp(TwoPhaseApplication):
         bind_meta_service(server, self.meta, user_store=user_store,
                           tenant_mode=self.flag("tenant_mode", "enforce"))
 
+    def meta_partition_loads(self):
+        snap = getattr(self.meta, "snapshot_loads", None)
+        if snap is None:
+            return {}
+        return {pid: float(n) for pid, n in snap().items()}
+
     def before_start(self) -> None:
         self.spawn(self._gc_loop, "meta-gc")
+        if hasattr(self.meta, "resolve_intents"):
+            self.spawn(self._resolver_loop, "meta-twophase-resolver")
+
+    def _resolver_loop(self) -> None:
+        """Converge dangling two-phase intents on OWNED partitions — a
+        reassigned partition's new owner rolls a dead coordinator's
+        in-flight renames forward/back (docs/metashard.md crash matrix)."""
+        while not self._stop.wait(self.config.get("resolve_interval_s")):
+            try:
+                self.meta.resolve_intents(pids=self._owned_partitions())
+            except Exception:
+                pass
 
     def after_stop(self) -> None:
         # the file client's fan-out pool holds worker threads

@@ -2,9 +2,10 @@
 
 The port's own copy of ``tpu3fs/bin/mgmtd_main.py``. ``MgmtdApp`` takes
 a keyword ``device`` (else ``--device``, default ``cuda``) like every app
-of the port, though mgmtd itself launches no kernel; ``--kv`` must be
-empty (the network KV engines are ROADMAP M6a-2b). Run it as
-``python -m tpu3fs_torch.bin.mgmtd_main --node-id 1 --port P``.
+of the port, though mgmtd itself launches no kernel. ``--kv`` names the
+shared network KV (a kvd, or a kvd group as ``id=h:p,...``); empty
+keeps mgmtd's state in its own memory. Run it as ``python -m
+tpu3fs_torch.bin.mgmtd_main --node-id 1 --port P [--kv ...]``.
 
 One-phase boot (mgmtd cannot fetch config from itself); holds the cluster KV
 store, serves heartbeat/routing/admin RPCs and runs the background updaters:

@@ -1,7 +1,6 @@
 """The storage and file clients (``storage_client``, ``file_io``,
-``hedging``, ``prefetch``, ``stubs``): the port's own copies of those
-modules of ``tpu3fs/client/``. ``inmem`` is not ported (ROADMAP
-M6a-2b)."""
+``hedging``, ``prefetch``, ``stubs``) and the in-memory storage double
+(``inmem``): the port's own copies of ``tpu3fs/client/``."""
 
 from tpu3fs_torch.client.storage_client import (  # noqa: F401
     StorageClient,

@@ -3,9 +3,9 @@ transport choice (the reference's stub/DI layer, src/stubs/: each service
 exposes a Stub interface plus factories producing real-RPC or mock
 implementations, and consumers take the factory, never a concrete stub).
 
-The port's own copy of ``tpu3fs/client/stubs.py``, with the "tcp"
-transport only: "native" (the C++ transport, ROADMAP M6a-3) and "inmem"
-(``client/inmem.py``, ROADMAP M6a-2b) raise ``NotImplementedError``.
+The port's own copy of ``tpu3fs/client/stubs.py``, with the "tcp" and
+"inmem" transports: "native" (the C++ transport, ROADMAP M6a-3) raises
+``NotImplementedError``.
 Storage and file clients take the keywords of ``StorageClient``, among
 them ``device`` (default ``cuda``), where their stripe codec runs.
 
@@ -16,6 +16,8 @@ them ``device`` (default ``cuda``), where their stripe codec runs.
 
 Transports:
   "tcp"    — Python socket transport (rpc.net.RpcClient)
+  "inmem"  — no cluster at all: StorageClientInMem + MemKV-backed MetaStore
+             (unit-test doubles, ref StorageClientInMem.h / mgmtd mocks)
 
 Every stub built by one factory shares one pooled RPC client, mirroring
 the reference sharing one net::Client across stubs.
@@ -42,12 +44,7 @@ class StubFactory:
             raise NotImplementedError(
                 "transport='native' (rpc/native_net.py) is not ported "
                 "(ROADMAP M6a-3); use transport='tcp'")
-        if transport == "inmem":
-            raise NotImplementedError(
-                "transport='inmem' (client/inmem.py StorageClientInMem) is "
-                "not ported (ROADMAP M6a-2b); use transport='tcp', or the "
-                "in-process Fabric")
-        if transport != "tcp":
+        if transport not in ("tcp", "inmem"):
             raise FsError(Status(Code.INVALID_ARG,
                                  f"unknown transport {transport!r}"))
         self.transport = transport
@@ -56,10 +53,14 @@ class StubFactory:
         self._rpc = None
         self._mgmtd_cli = None
         self._timeouts = (connect_timeout, call_timeout)
+        self._inmem_kv = None
 
     # -- shared plumbing -----------------------------------------------------
     def rpc_client(self):
         """The one pooled connection client every stub shares."""
+        if self.transport == "inmem":
+            raise FsError(Status(Code.INVALID_ARG,
+                                 "inmem stubs have no RPC client"))
         if self._rpc is None:
             from tpu3fs_torch.rpc.net import RpcClient
 
@@ -79,6 +80,9 @@ class StubFactory:
     # -- stubs ---------------------------------------------------------------
     def mgmtd_client(self):
         """Routing/heartbeat/registration stub."""
+        if self.transport == "inmem":
+            raise FsError(Status(Code.INVALID_ARG,
+                                 "inmem mode has no mgmtd; use the fabric"))
         return self._mgmtd()
 
     def mgmtd_admin(self):
@@ -89,6 +93,10 @@ class StubFactory:
         return MgmtdAdminRpcClient(self.mgmtd_addr, self.rpc_client())
 
     def storage_client(self, client_id: str = "stub-client", **kw):
+        if self.transport == "inmem":
+            from tpu3fs_torch.client.inmem import StorageClientInMem
+
+            return StorageClientInMem(client_id)
         from tpu3fs_torch.client.storage_client import StorageClient
         from tpu3fs_torch.rpc.services import RpcMessenger
 
@@ -103,6 +111,13 @@ class StubFactory:
         return FileIoClient(self.storage_client(client_id, **kw))
 
     def meta_client(self, token: str = ""):
+        if self.transport == "inmem":
+            from tpu3fs_torch.kv.mem import MemKVEngine
+            from tpu3fs_torch.meta.store import ChainAllocator, MetaStore
+
+            if self._inmem_kv is None:
+                self._inmem_kv = MemKVEngine()
+            return MetaStore(self._inmem_kv, ChainAllocator(1, [1]))
         from tpu3fs_torch.rpc.services import MetaRpcClient
 
         if self.meta_addr is None:
@@ -111,8 +126,12 @@ class StubFactory:
                              token=token)
 
     def serving_peer_client(self, **kw):
-        """Serving peerRead/fillClaim stub (serving/service.py; its socket
-        half is ROADMAP M6a-2b and raises until then)."""
+        """Serving peerRead/fillClaim stub (serving/service.py) — shares the
+        factory's pooled RPC client like every other stub. Sockets only:
+        ``usrbio=True`` (shm rings, ROADMAP M6a-3) raises."""
+        if self.transport == "inmem":
+            raise FsError(Status(Code.INVALID_ARG,
+                                 "inmem mode has no serving peers"))
         from tpu3fs_torch.serving.service import ServingPeerClient
 
         return ServingPeerClient(self.rpc_client(), **kw)

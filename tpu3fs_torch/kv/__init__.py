@@ -1,7 +1,9 @@
-"""The transactional KV interface and its in-memory engine (``kv``,
-``mem``), and the binaries' ``--kv`` flag (``remote.engine_from_flag``):
-the port's own copies of those modules of ``tpu3fs/kv/``. The remote,
-replicated and served engines are not ported yet (ROADMAP M6a-2b)."""
+"""The transactional KV interface and its engines: the port's own copies of
+``tpu3fs/kv/``. ``kv`` and ``mem`` are the interface and the in-memory MVCC
+engine; ``service`` serves an engine as the Kv RPC service (the kvd, with
+its write-ahead log); ``replica`` is the replicated kvd group (a Raft log
+with quorum commit); ``remote`` holds the network engines a binary's
+``--kv`` flag names."""
 
 from tpu3fs_torch.kv.kv import IKVEngine, ITransaction, KeyPrefix, with_transaction  # noqa: F401
 from tpu3fs_torch.kv.mem import MemKVEngine  # noqa: F401

@@ -1,6 +1,5 @@
-"""File metadata over the KV store (``types``, ``store``, ``scan``): the
-port's own copies of those modules of ``tpu3fs/meta/``. ``distributor`` is
-not ported (ROADMAP M6a-2b)."""
+"""File metadata over the KV store (``types``, ``store``, ``scan``,
+``distributor``): the port's own copies of ``tpu3fs/meta/``."""
 
 from tpu3fs_torch.meta.types import (  # noqa: F401
     Acl,

@@ -1,30 +1,37 @@
-"""monitor_collector's wire types and the push sinks every binary ships
-its samples through.
+"""monitor_collector: the central sample-ingest service + push client.
 
-The port's own copy of the sink half of ``tpu3fs/monitor/collector.py``:
-``SampleBatch``, ``Ack``, ``QueryReq``, ``CollectorSink``,
-``LocalCollectorSink`` and ``BufferedCollectorSink``, unchanged but for
-their imports. ``CollectorService`` and ``bind_collector_service`` need
-``monitor/agg.py``, ``monitor/slo.py`` and ``bin/monitor_main.py`` and
-are not ported yet (ROADMAP M6a-2b), and with them the ``aggQuery`` and
-``sloStatus`` wire types. A push with no collector address ships
-nothing, as in the JAX package.
+The port's own copy of ``tpu3fs/monitor/collector.py``, unchanged but for its
+imports.
 
-Every server's Monitor pushes Sample batches over RPC (ref
-MonitorCollectorService.h:24-31, 4096 samples per flush); the Ack of a
-push carries the collector's ``dump_epoch``, and each binary's
-``BufferedCollectorSink`` reacts to its growth by dumping its local
-flight recorder.
+Re-expresses src/monitor_collector (MonitorCollectorService.h:24-31): every
+server's Monitor pushes Sample batches over RPC; the collector buffers and
+batch-commits (4096 per flush, like the reference) to its sink — JSONL here,
+ClickHouse via deploy/sql/tpu3fs-monitor.sql in a real deployment.
+
+Beyond the reference's dumb buffer, the collector is a TIME-SERIES +
+VERDICT service: every ingested batch also streams into a
+``WindowedAggregator`` (monitor/agg.py — per-series ring retention with
+rate/last/percentile rollups queryable over any window via the
+``aggQuery`` RPC), and an ``SloEngine`` (monitor/slo.py) continuously
+judges those aggregates against hot-pushed ``[slo]`` rules, answering
+the single cluster verdict over the ``sloStatus`` RPC. When a rule
+FIRES, the collector bumps ``dump_epoch``; the Ack of every subsequent
+push carries it (trailing serde field — old peers ignore it), and each
+binary's ``BufferedCollectorSink`` reacts by dumping its local flight
+recorder — the whole fleet snapshots its black boxes within one push
+period of a breach.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+from tpu3fs_torch.monitor.agg import AggRow, WindowedAggregator
 from tpu3fs_torch.monitor.recorder import Sample
-from tpu3fs_torch.rpc.net import RpcClient
+from tpu3fs_torch.monitor.slo import RuleState, SloEngine, TransitionRow
+from tpu3fs_torch.rpc.net import RpcClient, RpcServer, ServiceDef
 
 COLLECTOR_SERVICE_ID = 5  # ref fbs/monitor_collector
 FLUSH_BATCH = 4096
@@ -46,11 +53,137 @@ class Ack:
 
 
 @dataclass
+class AggQueryReq:
+    """Windowed-rollup query (see agg.WindowedAggregator.query)."""
+
+    name: str = ""
+    tags: Dict[str, str] = field(default_factory=dict)
+    window_s: float = 60.0
+    until: float = 0.0         # 0 = now
+    prefix: bool = False       # name is a prefix, not exact
+
+
+@dataclass
+class AggQueryRsp:
+    rows: List[AggRow] = field(default_factory=list)
+
+
+@dataclass
+class SloStatusReq:
+    evaluate: bool = True      # run an evaluation pass before answering
+
+
+@dataclass
+class SloStatusRsp:
+    verdict: str = "OK"
+    firing: List[str] = field(default_factory=list)
+    rules: List[RuleState] = field(default_factory=list)
+    transitions: List[TransitionRow] = field(default_factory=list)
+    evaluated_ts: float = 0.0
+
+
+class CollectorService:
+    def __init__(self, sink, *, aggregator: Optional[WindowedAggregator]
+                 = None, slo: Optional[SloEngine] = None):
+        self._sink = sink
+        self.aggregator = aggregator
+        self.slo = slo
+        self._buffer: List[Sample] = []
+        self._lock = threading.Lock()
+        self._dump_epoch = 0
+        self._ingested = 0          # cumulative, for the ingest-rate gauge
+        if slo is not None:
+            slo.add_firing_callback(lambda _st: self.request_flight_dump())
+
+    def write(self, batch: SampleBatch) -> Ack:
+        # aggregation first and OUTSIDE the buffer lock: the rollup
+        # store has its own lock and must see samples even when the
+        # sink is slow
+        if self.aggregator is not None:
+            self.aggregator.ingest(batch.samples)
+        with self._lock:
+            self._ingested += len(batch.samples)
+            self._buffer.extend(batch.samples)
+            if len(self._buffer) >= FLUSH_BATCH:
+                self._flush_locked()
+        return Ack(len(batch.samples), self._dump_epoch)
+
+    def _flush_locked(self) -> None:
+        buf, self._buffer = self._buffer, []
+        self._sink.write(buf)
+
+    def flush(self) -> None:
+        with self._lock:
+            self._flush_locked()
+
+    @property
+    def ingested(self) -> int:
+        with self._lock:
+            return self._ingested
+
+    # -- flight-dump trigger -------------------------------------------------
+    def request_flight_dump(self) -> int:
+        """Bump the dump generation: every pusher that observes the new
+        epoch on its next Ack dumps its local flight recorder."""
+        with self._lock:
+            self._dump_epoch += 1
+            return self._dump_epoch
+
+    @property
+    def dump_epoch(self) -> int:
+        return self._dump_epoch
+
+    # -- queries -------------------------------------------------------------
+    def query(self, req: "QueryReq") -> SampleBatch:
+        """Operator query over the sink (flushes first so recent samples
+        are visible); requires a queryable sink (SqliteSink)."""
+        self.flush()
+        if not hasattr(self._sink, "query"):
+            return SampleBatch([])
+        return SampleBatch(self._sink.query(
+            req.name_prefix, req.since, req.until, req.limit))
+
+    def agg_query(self, req: AggQueryReq) -> AggQueryRsp:
+        if self.aggregator is None:
+            return AggQueryRsp([])
+        return AggQueryRsp(self.aggregator.query(
+            req.name, req.tags, req.window_s, until=req.until,
+            prefix=req.prefix))
+
+    def slo_status(self, req: SloStatusReq) -> SloStatusRsp:
+        import time as _time
+
+        if self.slo is None:
+            return SloStatusRsp()
+        if req.evaluate:
+            self.slo.evaluate()
+        verdict, firing = self.slo.health()
+        return SloStatusRsp(
+            verdict=verdict,
+            firing=[s.rule for s in firing],
+            rules=sorted(self.slo.snapshot().values(),
+                         key=lambda s: s.rule),
+            transitions=list(self.slo.transitions)[-64:],
+            evaluated_ts=_time.time(),
+        )
+
+
+@dataclass
 class QueryReq:
     name_prefix: str = ""
     since: float = 0.0
     until: float = 0.0
     limit: int = 1000
+
+
+def bind_collector_service(server: RpcServer, service: CollectorService) -> None:
+    s = ServiceDef(COLLECTOR_SERVICE_ID, "MonitorCollector")
+    s.method(1, "write", SampleBatch, Ack, service.write)
+    s.method(2, "query", QueryReq, SampleBatch, service.query)
+    s.method(3, "aggQuery", AggQueryReq, AggQueryRsp, service.agg_query)
+    s.method(4, "sloStatus", SloStatusReq, SloStatusRsp,
+             service.slo_status)
+    server.add_service(s)
 
 
 class CollectorSink:

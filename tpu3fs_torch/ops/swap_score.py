@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tpu3fs_torch import kernels
+from tpu3fs_torch.device import resolve_device
 
 MOVE_ROWS = 5  # g1, g2, a, c, valid
 
@@ -58,17 +59,20 @@ class SwapState:
 
 
 def swap_state(M: np.ndarray, domain_of_node: Optional[np.ndarray] = None,
-               cap: int = 0, device="cpu",
+               cap: int = 0, device=None,
                gram: Optional[np.ndarray] = None) -> SwapState:
     """Build the state of a 0/1 int8 table ``M`` (b, v) on the host and copy
-    it to ``device``. ``gram`` is ``gram_np(M)`` where the caller has it;
-    ``domain_of_node`` an int (v,) index of each node's domain, or None."""
+    it to ``device`` (``None`` -> ``cuda``, raising without a card; the CPU
+    tests pass ``"cpu"``). ``gram`` is ``gram_np(M)`` where the caller has
+    it; ``domain_of_node`` an int (v,) index of each node's domain, or
+    None."""
     M = np.asarray(M)
     if M.dtype != np.int8 or M.ndim != 2:
         raise TypeError(f"swap_state takes int8 (b, v), got {M.dtype} "
                         f"{M.shape}")
     if not ((M == 0) | (M == 1)).all():
         raise ValueError("swap_state takes a 0/1 incidence matrix")
+    device = resolve_device(device)
     b, v = M.shape
     C = gram_np(M) if gram is None else np.asarray(gram, dtype=np.int64)
     off = C - np.diag(np.diag(C))

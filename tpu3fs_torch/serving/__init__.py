@@ -7,10 +7,9 @@ storage (docs/serving.md). The package splits along the protocol:
   (rendezvous-hashed owner ranking, health-gated selection);
 - ``singleflight`` — in-process request coalescing + the cluster
   fill-intent claim table;
-- ``service``   — the Serving RPC service's types (peerRead/fillClaim/
-  fillRelease/servingStats/servingLoad) and its per-process host; the
-  socket binding and the socket/shm-ring peer client are the tier's
-  socket half (ROADMAP M6a-2b) and raise;
+- ``service``   — the Serving RPC service (peerRead/fillClaim/
+  fillRelease/servingStats/servingLoad), its per-process host, and the
+  socket peer client (its shm rings are ROADMAP M6a-3 and raise);
 - ``fleet``     — ``FleetKVCache``: the TieredKVCache subclass whose
   miss path runs single-flight -> hedged peer fill -> claimed storage
   fill, with shared-block refcounts and tenant-aware peer admission.

@@ -1,15 +1,14 @@
 """The Serving RPC surface: each serving process's host + peer client.
 
 Service id 7 ("Serving") rides the same TCP transport as every other
-service in the JAX package, and ``peerRead`` — the only data-plane method
-— additionally rides the USRBIO shm rings when requester and peer share a
-host. The port has the in-process half: the request and reply types and
-``ServingHost``. The socket binding (``bind_serving_service``) and the
-socket/ring peer client (``ServingPeerClient``) are the serving tier's
-socket half, not ported yet (ROADMAP M6a-2b; its rings are M6a-3): both
-raise ``NotImplementedError``. In one process a caller hands
-``FleetKVCache`` any object with ``peer_read``/``fill_claim``/
-``fill_release`` that dispatches into the peers' ``ServingHost``s.
+service. In the JAX package ``peerRead`` — the only data-plane method —
+additionally rides the USRBIO shm rings when requester and peer share a
+host; the port's ``ServingPeerClient`` speaks sockets only (the rings are
+ROADMAP M6a-3): ``usrbio=True`` raises ``NotImplementedError`` and never
+falls back to a socket, so the port's default is ``usrbio=False``. In one
+process a caller may also hand ``FleetKVCache`` any object with
+``peer_read``/``fill_claim``/``fill_release`` that dispatches into the
+peers' ``ServingHost``s.
 
 The host answers ``peerRead`` from its HOST TIER (``TieredKVCache.peek``
 — local-only, a peer miss must never recurse into this process's own
@@ -339,21 +338,74 @@ class ServingHost:
 
 
 def bind_serving_service(server, host: ServingHost):
-    """Bind the Serving service onto an RPC server: the serving tier's
-    socket half, not ported yet."""
-    raise NotImplementedError(
-        "bind_serving_service (the serving tier's socket half) is not "
-        "ported yet (ROADMAP M6a-2b); in one process, dispatch peer calls "
-        "into ServingHost directly")
+    """Bind the Serving service onto an RpcServer (the JAX package also
+    binds Usrbio for co-located peers' rings: ROADMAP M6a-3)."""
+    from tpu3fs_torch.rpc.net import ServiceDef
 
+    s = ServiceDef(SERVING_SERVICE_ID, "Serving")
+    s.method(1, "peerRead", PeerReadReq, PeerReadRsp, host.peer_read)
+    s.method(2, "fillClaim", FillClaimReq, FillClaimRsp, host.fill_claim)
+    s.method(3, "fillRelease", FillReleaseReq, FillReleaseRsp,
+             host.fill_release)
+    s.method(4, "servingStats", PeerReadReq, ServingStatsRsp,
+             lambda r: host.stats())
+    s.method(5, "servingLoad", ServingLoadReq, ServingLoadRsp, host.load)
+    server.add_service(s)
+    return s
+
+
+# -- peer client -------------------------------------------------------------
 
 class ServingPeerClient:
-    """Client half of the peer-fill protocol over sockets and shm rings:
-    the serving tier's socket half (and its rings), not ported yet."""
+    """Client half of the peer-fill protocol over sockets. The JAX
+    package's client also rides shm rings to co-located peers; those are
+    ROADMAP M6a-3, so ``usrbio=True`` raises rather than fall back to a
+    socket."""
 
-    def __init__(self, rpc_client, *, usrbio: bool = True,
-                 entries: int = 64, iov_bytes: int = 8 << 20):
-        raise NotImplementedError(
-            "ServingPeerClient (the serving tier's socket half) is not "
-            "ported yet (ROADMAP M6a-2b; its shm rings M6a-3); in one "
-            "process, dispatch peer calls into ServingHost directly")
+    def __init__(self, rpc_client, *, usrbio: bool = False):
+        if usrbio:
+            raise NotImplementedError(
+                "ServingPeerClient(usrbio=True): the USRBIO shm rings are "
+                "not ported (ROADMAP M6a-3); pass usrbio=False for sockets")
+        self._client = rpc_client
+
+    @staticmethod
+    def _addr(ep) -> tuple:
+        if not getattr(ep, "host", ""):
+            raise FsError(Status(Code.RPC_CONNECT_FAILED,
+                                 f"serving endpoint {ep!r} has no address"))
+        return ep.host, ep.port
+
+    def close(self) -> None:
+        """Nothing to release: the socket client has no rings."""
+
+    # -- calls ---------------------------------------------------------------
+    def peer_read(self, ep, keys: List[str], *, serve_through: bool = True,
+                  est_bytes: int = 1 << 20,
+                  deadline_s: Optional[float] = None) -> PeerReadRsp:
+        """``deadline_s`` bounds the attempt and surfaces expiry as
+        RPC_TIMEOUT: the caller (the fleet fill ladder) owns the
+        fallback-to-storage decision. ``est_bytes`` sizes a ring's reply
+        in the JAX package; sockets need no estimate."""
+        req = PeerReadReq(keys=list(keys), serve_through=serve_through)
+        return self._client.call(self._addr(ep), SERVING_SERVICE_ID, 1,
+                                 req, PeerReadRsp, timeout_s=deadline_s)
+
+    def fill_claim(self, ep, key: str, owner: int,
+                   ttl_ms: int = 2000) -> FillClaimRsp:
+        return self._client.call(
+            self._addr(ep), SERVING_SERVICE_ID, 2,
+            FillClaimReq(key=key, owner=owner, ttl_ms=ttl_ms), FillClaimRsp)
+
+    def fill_release(self, ep, key: str, owner: int) -> FillReleaseRsp:
+        return self._client.call(
+            self._addr(ep), SERVING_SERVICE_ID, 3,
+            FillReleaseReq(key=key, owner=owner), FillReleaseRsp)
+
+    def stats(self, ep) -> ServingStatsRsp:
+        return self._client.call(self._addr(ep), SERVING_SERVICE_ID, 4,
+                                 PeerReadReq(), ServingStatsRsp)
+
+    def load(self, ep, req: ServingLoadReq) -> ServingLoadRsp:
+        return self._client.call(self._addr(ep), SERVING_SERVICE_ID, 5,
+                                 req, ServingLoadRsp)
