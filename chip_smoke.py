@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the tpu3fs_torch data plane, chain-table placement, storage tier,
 serving stack, KV-cache tier, checkpoints, data loading, concurrent fetch,
-readahead, the trace sink and the services over sockets on one CUDA card.
+readahead, the trace sink, the services over sockets and the USRBIO
+shared-memory rings on one CUDA card.
 
 Run from the repository root, with one card:
 
     python3 chip_smoke.py
 
 Phases, in order (any failure exits non-zero):
-  1. environment: the card's name and power limit, torch and CUDA versions;
+  1. environment: the card's name and power limit, torch and CUDA versions,
+     /dev/shm's size and free space and the library of sem_open;
   2. build: the kernel library from tpu3fs_torch/csrc with nvcc;
   3. K1: layout probes (a unit matrix, single set bits), then both kernels
      (the tensor-core gf2_matmul and gf2_matmul_bitslice) against the plain
@@ -150,11 +152,12 @@ Phases, in order (any failure exits non-zero):
      a 4 MiB file on the card and on the CPU must give equal records;
      after phase 15 the epoch at 4 workers again under torch.profiler;
  17. the services over sockets (sockets; after phase 16, its launches
-     added to the kernels line under "sockets"): (a) mgmtd, four storage
+     added to the kernels line under "sockets"; every messenger and child
+     pinned to sockets, TPU3FS_USRBIO=0 and usrbio=0): (a) mgmtd, four storage
      apps (engine=mem, usrbio=0) and a meta app in this process on
      run_background over loopback TCP, all on the card, the chains
      uploaded through MgmtdAdminRpcClient (two RS(12,4) chains of 16
-     targets, 4 on each node; a CR chain of 3); a warm-up pass, then
+     targets, 4 on each node; a CR chain of 3); a warm-up pass at 8 stripes, then
      phase 11's requests through MetaRpcClient, StorageClient and
      RpcMessenger: write /a (48 stripes of 1 MiB), read, a 5,000-byte
      overwrite, stop a node and read degraded, write while it is down,
@@ -177,13 +180,18 @@ Phases, in order (any failure exits non-zero):
      under "fleet"): a kvd group of three (kv_main --peers, fsync on),
      monitor_main, mgmtd and two meta servers on --kv the group with 4
      meta partitions, phase 17's four storage nodes and two serving_main
-     processes (1 GiB host tiers), each python -m ... --device cuda; the
-     script is the inference host (a PrefixBlockStore over a FleetKVCache
-     on the card, its peers reached by ServingPeerClient over TCP) at
-     phase 12's Llama-3.1-8B pages: 61's write-through servingLoad put
-     leg, the host's put of A, 61's storage fills of A, B's 192-page
-     prefix peer-filled from 61 in 16-page peerReads and put on the card
-     by get_blocks, B's own pages put from the host, single-flight (K
+     processes (1 GiB host tiers), each python -m ... --device cuda, the
+     storage and serving processes on the JAX package's defaults (hosting
+     USRBIO rings; the serving processes' peers over rings, an iov that
+     holds a 16-page reply); the script is the inference host (a
+     PrefixBlockStore over a FleetKVCache on the card, its peers reached
+     by a ServingPeerClient over rings) at phase 12's Llama-3.1-8B pages:
+     61's write-through servingLoad put leg, the host's put of A, 61's
+     storage fills of A, B's 192-page prefix peer-filled from 61 in
+     16-page peerReads and put on the card by get_blocks, in 3 rotated
+     turns over the ring peer client and a socket-only one (every
+     peerRead of a turn on its transport), B's own pages put from the
+     host, single-flight (K
      concurrent misses, one storage fill) and A's fills in 62, a
      storage process SIGKILLed and B's tail read degraded, the kvd leader
      SIGKILLed with meta creates and stats on every partition going on
@@ -193,8 +201,36 @@ Phases, in order (any failure exits non-zero):
      kvd members and the collector off it; host ms and launches of each
      step, put, peer-fill and storage-fill GiB/s, the prefix-on-card ms
      and the failover's time to the first meta reply. Only the script's
-     launches are counted.
-Phases 7-14 and 16-18 are the main path: every kernel count is set to 0
+     launches are counted. No ring segment or semaphore is left in
+     /dev/shm after it;
+ 19. the USRBIO rings (rings; after phase 18, its launches under
+     "rings"): phase 17 (b)'s cluster as processes with the storage
+     processes on usrbio=1 (their own messengers ride rings to each
+     other) and a monitor_main they push their samples to; a ring client
+     (TPU3FS_USRBIO=1) and a socket client (0) over the same processes,
+     every request on both in 3 rotated turns, medians and ring/socket
+     ratios: usrbio_bench's batch_write and batch_read of 32 x 1 MiB on
+     the CR chain and 32 single write_chunk and read_chunk calls; phase
+     17's /a (48 RS(12,4) stripes of 1 MiB) written and read, a storage
+     process SIGKILLed and every file read degraded (K1 decodes), a new
+     process rebuilt by the storage processes over their rings, a sample
+     of stored shards held against twins encoded on the card; each
+     storage process's usrbio.completed and usrbio.bytes (via the
+     collector) against the ring client's counts, a window a node;
+     phase 16's loader at 1, 2 and 4 fetch workers (2 of phase 13's 4
+     record files); the hf3fs_usrbio API
+     (a UsrbioAgent in the script over each client, a UsrbioClient on
+     it): a 256 MiB file (cut from 1 GiB: RING_API_MIB) written and read
+     in 1 MiB blocks at depth 32, then
+     read with a second storage process killed, every block checked.
+     Every data-plane call of the ring client rides a ring and every call
+     of the socket client a socket; the storage processes are shown on
+     the card; every child stops on SIGTERM within 10 s with no
+     traceback; no tpu3fs-iov-, tpu3fs-ior-, handshake segment or named
+     semaphore that the phase's processes mapped or named is left in
+     /dev/shm (the SIGKILLed processes' leftovers are reaped first;
+     nothing else in the machine's /dev/shm is touched).
+Phases 7-14 and 16-19 are the main path: every kernel count is set to 0
 just before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
@@ -204,7 +240,8 @@ times K4's launch plan varied (fold_variants); ``--kvcache`` builds them
 and runs phase 12 alone, with its traced run; ``--ckpt`` builds them and
 runs phase 13 alone, with its traced run; ``--fetch`` builds them and
 runs phase 16 alone, with its traced run; ``--sockets`` builds them and
-runs phase 17 alone; ``--fleet`` builds them and runs phase 18 alone.
+runs phase 17 alone; ``--fleet`` builds them and runs phase 18 alone;
+``--rings`` builds them and runs phase 19 alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -218,6 +255,7 @@ import json
 import os
 import re
 import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -3667,6 +3705,7 @@ SOCK_W_MIB, SOCK_C_MIB = 8, 2
 SOCK_PARKED = "3600"                   # seconds: (a)'s loops never fire
 SOCK_WAIT_S = 300.0                    # the bound on any one wait
 SOCK_CHILD_STOP_S = 10.0               # SIGTERM -> exit, else killed
+SOCK_WARM_STRIPES = 8                  # (a)'s warm-up pass
 
 
 def sock_wait(pred, what: str, timeout: float = SOCK_WAIT_S):
@@ -3862,10 +3901,16 @@ class SockProcesses:
     (heartbeats, mgmtd's ticks, target scans, resync and GC). Only
     mgmtd's port is chosen here (a socket bound to port 0, closed just
     before); every other address is read from mgmtd's routing. Logs go to
-    ``logdir``."""
+    ``logdir``. Every child runs with ``env`` over this process's
+    environment: phase 17 pins sockets (``TPU3FS_USRBIO=0``, and its
+    storage processes take ``usrbio=0``), so its numbers stay comparable
+    with those of the socket-only port."""
+
+    env = {"TPU3FS_USRBIO": "0"}
 
     def __init__(self, logdir: Path, device: str = "cuda"):
         self.logdir, self.device, self.procs = logdir, device, []
+        self.shm = ShmLedger()
         logdir.mkdir(parents=True, exist_ok=True)
         try:
             self._boot()
@@ -3907,7 +3952,8 @@ class SockProcesses:
             proc = subprocess.Popen(
                 [sys.executable, "-m", f"tpu3fs_torch.bin.{module}",
                  "--node-id", str(node_id), "--device", self.device, *args],
-                stdout=out, stderr=subprocess.STDOUT)
+                stdout=out, stderr=subprocess.STDOUT,
+                env={**os.environ, **self.env})
         self.procs.append(SimpleNamespace(name=name, node_id=node_id,
                                           proc=proc, log=path, killed=False))
 
@@ -3933,15 +3979,27 @@ class SockProcesses:
         return [c.proc.pid for c in self.procs
                 if c.name.startswith(prefix) and c.proc.poll() is None]
 
-    def fail(self, node_id: int) -> None:
-        """SIGKILL the node's process; wait for mgmtd to take its targets
-        out of service."""
+    def snap_shm(self) -> None:
+        """Note the /dev/shm names the script and every live child map."""
+        self.shm.snap([os.getpid()] + [c.proc.pid for c in self.procs
+                                       if c.proc.poll() is None])
+
+    def sigkill(self, child) -> None:
+        """SIGKILL a child, its /dev/shm names noted first: it is stopped
+        (SIGSTOP) while the names are read, so it maps no new one."""
         import signal
 
-        child = [c for c in self.procs if c.node_id == node_id][-1]
+        child.proc.send_signal(signal.SIGSTOP)
+        self.snap_shm()
+        self.shm.killed.add(child.proc.pid)
         child.proc.send_signal(signal.SIGKILL)
         child.proc.wait(SOCK_CHILD_STOP_S)
         child.killed = True
+
+    def fail(self, node_id: int) -> None:
+        """SIGKILL the node's process; wait for mgmtd to take its targets
+        out of service."""
+        self.sigkill([c for c in self.procs if c.node_id == node_id][-1])
         sock_wait(lambda: sock_node_down(self.admin.refresh_routing(),
                                          node_id),
                   f"mgmtd to take node {node_id}'s targets down")
@@ -3969,6 +4027,7 @@ class SockProcesses:
         import signal
 
         bad = []
+        self.snap_shm()
         live = [c for c in self.procs if c.proc.poll() is None]
         for c in live:
             c.proc.send_signal(signal.SIGTERM)
@@ -4000,6 +4059,23 @@ def sock_inputs(depth: int = FAB_STRIPES) -> dict:
     u8 = lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()  # noqa: E731
     return dict(serving_inputs(depth), w=u8(SOCK_W_MIB * MIB),
                 c=u8(SOCK_C_MIB * MIB))
+
+
+# shard reads a batchReadRebuild call: its reply estimate is twice the
+# chunk size (1 MiB when unknown) a read to the end, and over a ring the
+# reply region must fit the client's 64 MiB iov, or the call quietly
+# rides a socket
+SHARD_READS_A_CALL = 16
+
+
+def read_shards(sc, node_id: int, reqs: list) -> list:
+    """``sc.batch_read_rebuild`` of ``reqs`` to one node, SHARD_READS_A_CALL
+    at a time."""
+    out = []
+    for i in range(0, len(reqs), SHARD_READS_A_CALL):
+        out += sc.batch_read_rebuild(node_id,
+                                     reqs[i:i + SHARD_READS_A_CALL])
+    return out
 
 
 def sock_shards(sc, routing, inode, body: bytes, dev) -> int:
@@ -4038,7 +4114,7 @@ def sock_shards(sc, routing, inode, body: bytes, dev) -> int:
                                target_id=tid)))
     held, bufs = [], []
     for node_id, items in by_node.items():
-        replies = sc.batch_read_rebuild(node_id, [r for _, _, r in items])
+        replies = read_shards(sc, node_id, [r for _, _, r in items])
         for (i, j, _), rp in zip(items, replies):
             require(rp.ok, f"stripe {i} shard {j}: {rp.code!r}")
             got = bytes(rp.data)
@@ -4122,7 +4198,7 @@ def sock_sequence(ctl, dev, inputs: dict, requests: dict,
                         reqs.append(ReadReq(chain.chain_id,
                                             ChunkId(inode.id, i),
                                             target_id=t.target_id))
-        replies = sc.batch_read_rebuild(node_id, reqs)
+        replies = read_shards(sc, node_id, reqs)
         require(all(rp.ok for rp in replies), "a victim shard is unreadable")
         return sum(len(rp.data) for rp in replies), len(replies)
 
@@ -4449,14 +4525,26 @@ def sockets(dev, full: dict) -> dict:
     tensor-core or kernel launch. Returns the launches of both parts: for
     (b) the client's only, since the storage processes' launches are not
     visible to this process."""
-    import tempfile
+    from unittest import mock
 
     t0 = phase("phase 17: the services over sockets")
+    with mock.patch.dict(os.environ, {"TPU3FS_USRBIO": "0"}):
+        return sockets_pinned(dev, full, t0)
+
+
+def sockets_pinned(dev, full: dict, t0: float) -> dict:
+    """Phase 17's body, with every messenger of the script (and of part
+    (a)'s apps) built under ``TPU3FS_USRBIO=0``."""
+    import tempfile
+
     inputs = sock_inputs()
     body = rand_u8((FETCH_FULL_MIB * MIB,), 1717, dev).cpu().numpy().tobytes()
     totals, runs = collections.Counter(), {}
-    with tempfile.TemporaryDirectory() as tmp:  # warm-up: codecs, allocator
-        sock_part("a", dev, full, inputs, body, Path(tmp))
+    # warm-up (codecs, allocator) at 8 stripes, not phase 11's 48: the
+    # script's time limit makes room for phase 19 here
+    with tempfile.TemporaryDirectory() as tmp:
+        sock_part("a", dev, full, sock_inputs(SOCK_WARM_STRIPES), body,
+                  Path(tmp))
     for part in ("a", "b"):
         with tempfile.TemporaryDirectory() as tmp:
             run = runs[part] = sock_part(part, dev, full, inputs, body,
@@ -4496,6 +4584,9 @@ FLEET_MONITOR = 300                    # monitor_collector
 FLEET_HOST = 70                        # this script, the inference host
 FLEET_TIER = 1 << 30                   # each host tier: A is 512 MiB
 FLEET_BATCH = 16                       # pages a decode-step chunk fetches
+# A, B's shared prefix, B's own pages: half of phase 12's (256, 192, 64),
+# to make room for phase 19 in the script's time limit
+FLEET_FULL = (128, 96, 32)
 FLEET_SF_K = 8                         # concurrent misses of one key
 FLEET_PUSH_S = 1.0                     # every process's sample push period
 FLEET_FAILOVER_S = 60.0                # bound: kvd leader death -> meta reply
@@ -4505,6 +4596,12 @@ FLEET_BEAT_S = 1.0
 # the inference host's hedge floor: a peerRead of one 2 MiB page over
 # loopback TCP takes milliseconds, not the default 5 ms floor's budget
 FLEET_HEDGE_MS = 250.0
+# a peerRead's reply estimate a page (an encoded 2 MiB page is under it)
+# and the peer clients' ring iov: the estimate is clamped to half the
+# arena, so a 16-page reply (32 MiB) must fit in half of it, or it would
+# overflow its region and quietly ride a socket
+FLEET_PEER_EST = 2 * MIB + 4096
+FLEET_PEER_IOV = 128 * MIB
 
 
 def fleet_group_ports(n: int) -> list:
@@ -4536,7 +4633,13 @@ class FleetProcesses(SockProcesses):
     storage nodes and two ``serving_main`` processes with a 1 GiB host
     tier each; every process but the kvd members and the collector pushes
     its samples to the collector. The kvd group boots first and must show
-    one leader before anything is started on it."""
+    one leader before anything is started on it. The storage and serving
+    processes run on the JAX package's defaults: each hosts USRBIO rings
+    (``usrbio=1``) and rides them to its co-located peers (the serving
+    processes' ``peer_usrbio=1``, with FLEET_PEER_EST and FLEET_PEER_IOV
+    so that a 16-page peerRead fits its ring)."""
+
+    env = {"TPU3FS_USRBIO": "1"}
 
     def _boot(self) -> None:
         from tpu3fs_torch.rpc.services import MgmtdAdminRpcClient, MgmtdRpcClient
@@ -4599,7 +4702,9 @@ class FleetProcesses(SockProcesses):
                 "--mgmtd=%s:%d" % self.maddr,
                 "--heartbeat_interval", str(FLEET_BEAT_S),
                 f"--config.capacity_bytes={FLEET_TIER}",
-                f"--config.dirty_max_bytes={FLEET_TIER}", *self.push])
+                f"--config.dirty_max_bytes={FLEET_TIER}",
+                f"--config.peer_est_bytes={FLEET_PEER_EST}",
+                f"--config.peer_iov_bytes={FLEET_PEER_IOV}", *self.push])
             self.serving[node_id] = sock_wait(
                 lambda n=node_id: self.admin.refresh_routing().serving.get(n),
                 f"serving {node_id} to register")
@@ -4609,7 +4714,7 @@ class FleetProcesses(SockProcesses):
         self._start(f"storage{node_id}", "storage_main", node_id, [
             "--mgmtd=%s:%d" % self.maddr,
             "--heartbeat_interval", str(FLEET_BEAT_S),
-            "--config.engine=mem", "--config.usrbio=0",
+            "--config.engine=mem",
             "--config.target_scan_interval_s=0.5",
             "--config.resync_interval_s=0.5", *self.push])
 
@@ -4652,12 +4757,7 @@ class FleetProcesses(SockProcesses):
         return sock_wait(one, "the kvd group to show one leader")
 
     def kill(self, name: str) -> None:
-        import signal
-
-        child = [c for c in self.procs if c.name == name][-1]
-        child.proc.send_signal(signal.SIGKILL)
-        child.proc.wait(SOCK_CHILD_STOP_S)
-        child.killed = True
+        self.sigkill([c for c in self.procs if c.name == name][-1])
 
 
 def fleet_device_files(pid: int) -> dict:
@@ -4703,8 +4803,10 @@ class FleetHost:
     """The inference host: this process. A ``PrefixBlockStore`` over a
     ``FleetKVCache`` on the card, on the deployment's meta (partition-
     routed) and storage; its peers are the serving processes the current
-    step names, from mgmtd's serving directory, reached through
-    ``ServingPeerClient(RpcClient(), usrbio=False)``."""
+    step names, from mgmtd's serving directory, reached through a
+    ``ServingPeerClient`` over USRBIO rings (the default, with an iov of
+    FLEET_PEER_IOV) or, for the socket turns of the peer fill, one with
+    ``usrbio=False``; the peer client in use is ``fleet.peers``."""
 
     def __init__(self, ctl: FleetProcesses, dev):
         from tpu3fs_torch.client.file_io import FileIoClient
@@ -4728,7 +4830,11 @@ class FleetHost:
                                 inode_cache=4096)
         # a servingLoad leg is one call that runs the whole leg
         self.rpc = RpcClient(call_timeout=SOCK_WAIT_S)
-        self.peers = ServingPeerClient(self.rpc, usrbio=False)
+        self.peer_clients = {
+            "ring": ServingPeerClient(self.rpc, usrbio=True,
+                                      iov_bytes=FLEET_PEER_IOV),
+            "socket": ServingPeerClient(self.rpc, usrbio=False)}
+        self.peers = self.peer_clients["ring"]
         self.view = SimpleNamespace(serving={})
         health = HealthRegistry()
         self.fleet = FleetKVCache(
@@ -4737,7 +4843,7 @@ class FleetHost:
             hedge=HedgeController(health=health,
                                   delay_floor_ms=FLEET_HEDGE_MS),
             capacity_bytes=FLEET_TIER, dirty_max_bytes=FLEET_TIER,
-            write_through=True)
+            write_through=True, peer_est_bytes=FLEET_PEER_EST)
         self.store = PrefixBlockStore(self.fleet,
                                       block_tokens=KV_BLOCK_TOKENS)
 
@@ -4760,6 +4866,8 @@ class FleetHost:
 
     def close(self) -> None:
         self.fleet.close(flush=False)
+        for peers in self.peer_clients.values():
+            peers.close()
         self.fio.close()
         self.sc.close()
         self.rpc.close()
@@ -4869,6 +4977,55 @@ def fleet_collector(ctl: FleetProcesses, legs: dict) -> dict:
             "slo_verdict": slo.verdict, "slo_rules": len(slo.rules)}
 
 
+def fleet_peer_fill(host: FleetHost, dev, steps: dict, info: dict,
+                    kind: str, turn: int, keys: list, toks: list,
+                    shared: int, entry: int, want: list) -> None:
+    """One turn of B's prefix peer-filled from 61 through the ``kind``
+    peer client ("ring" or "socket"), then put on the card by
+    ``get_blocks``: every page a peer hit and none a storage fill, every
+    peerRead over ``kind`` alone, every block equal to its source."""
+    from tpu3fs_torch.utils.bufpool import GLOBAL_POOL
+
+    peers = host.peer_clients[kind]
+    host.fleet.peers = peers
+    host.fleet.tier.clear()
+    host.peers_are(61)
+    pool0 = GLOBAL_POOL.stats()["outstanding"]
+    c0, calls0 = host.fleet.counters(), collections.Counter(
+        peers.transport_calls)
+    fill, card = f"fill_b_prefix_peer_{kind}{turn}", f"b_prefix_to_card_{kind}{turn}"
+
+    def timed(name, fn, nbytes=0):
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps[name] = {"host_ms": ms}
+        if nbytes:
+            steps[name]["GiB_s"] = nbytes / (1 << 30) / (ms / 1e3)
+        return out
+
+    timed(fill, lambda: host.fetch(keys), shared * entry)
+    got = timed(card, lambda: host.store.get_blocks(toks, count=shared,
+                                                    device=dev))
+    c1 = host.fleet.counters()
+    hits = c1["peer_hits"] - c0["peer_hits"]
+    require(hits == shared and c1["storage_fills"] == c0["storage_fills"],
+            f"{fill}: {hits} peer hits of {shared}")
+    require(GLOBAL_POOL.stats()["outstanding"] == pool0,
+            "the receive pool kept a peer reply's buffer")
+    calls = collections.Counter(peers.transport_calls) - calls0
+    other = {k: v for k, v in calls.items() if k[0] != kind}
+    require(calls and not other, f"{fill}: peerReads {dict(calls)} left the "
+            f"{kind} transport")
+    steps[fill]["peer_reads"] = sum(calls.values())
+    fleet_check_blocks(fill, got, want)
+    info.setdefault(f"prefix_on_card_{kind}", []).append(
+        steps[fill]["host_ms"] + steps[card]["host_ms"])
+    log(f"  {fill:<26} host {steps[fill]['host_ms']:10.1f} ms  "
+        f"{steps[fill]['GiB_s']:.3f} GiB/s, on the card after "
+        f"{info[f'prefix_on_card_{kind}'][-1]:.1f} ms")
+
+
 def fleet(dev) -> dict:
     """Phase 18: the deployment as processes (FleetProcesses) with this
     script as the inference host (FleetHost), at phase 12's Llama-3.1-8B
@@ -4882,18 +5039,21 @@ def fleet(dev) -> dict:
 
     from tpu3fs_torch.kvcache.layout import encode_array, shard_path
     from tpu3fs_torch.serving.service import ServingLoadReq
-    from tpu3fs_torch.utils.bufpool import GLOBAL_POOL
 
     t_phase = phase("phase 18: the deployment as processes")
     pages, sources = kv_pages(dev)
-    n_a, shared, own = KV_FULL
+    n_a, shared, own = FLEET_FULL
     bt = KV_BLOCK_TOKENS
     toks_a = list(range(n_a * bt))
     toks_b = toks_a[:shared * bt] + [10_000_000 + t for t in range(own * bt)]
     src_a = [sources[i] for i in range(n_a)]
     src_own = [sources[n_a + i] for i in range(own)]
     entry = len(encode_array(pages[0]))
+    require(entry <= FLEET_PEER_EST, f"a page's entry is {entry} B")
     steps, legs, uncounted, info = {}, {}, collections.Counter(), {}
+    info["shm"] = shm_fits("phase 18", clients=1 + len(FLEET_SERVING),
+                           storage=len(SOCK_IDS),
+                           peers=2 * len(FLEET_SERVING))
     ctl = host = None
     problems = []
 
@@ -4957,27 +5117,25 @@ def fleet(dev) -> dict:
                 op="get", keys=keys_a, batch=FLEET_BATCH), n_a * entry)
             require(legs["fill_a_61_storage"].storage_fills == n_a,
                     "61 did not fill A from storage")
-            # 4: B's shared prefix onto the card, peer-filled from 61
-            host.fleet.tier.clear()
-            host.peers_are(61)
-            pool0 = GLOBAL_POOL.stats()["outstanding"]
-            c0 = host.fleet.counters()
-            step("fill_b_prefix_peer", lambda: host.fetch(keys_b[:shared]),
-                 shared * entry)
-            got = step("b_prefix_to_card", lambda: host.store.get_blocks(
-                toks_b, count=shared, device=dev))
-            c1 = host.fleet.counters()
-            info["peer_hits"] = c1["peer_hits"] - c0["peer_hits"]
-            require(info["peer_hits"] == shared and
-                    c1["storage_fills"] == c0["storage_fills"],
-                    f"B's prefix: {info['peer_hits']} peer hits of {shared}")
-            require(GLOBAL_POOL.stats()["outstanding"] == pool0,
-                    "the receive pool kept a peer reply's buffer")
-            fleet_check_blocks("b_prefix", got, src_a[:shared])
-            info["prefix_on_card_ms"] = (
-                steps["fill_b_prefix_peer"]["host_ms"]
-                + steps["b_prefix_to_card"]["host_ms"])
-            del got
+            # 4: B's shared prefix onto the card, peer-filled from 61, in
+            # turns over the ring peer client and a socket-only one; the
+            # rings to both serving processes are made before the turns
+            for node_id in FLEET_SERVING:
+                require(host.peers._ring_for(ctl.serving[node_id])
+                        is not None, f"no ring to serving {node_id}")
+            for turn in range(RING_TURNS):
+                for kind in (("ring", "socket") if turn % 2 == 0
+                             else ("socket", "ring")):
+                    fleet_peer_fill(host, dev, steps, info, kind, turn,
+                                    keys_b[:shared], toks_b, shared, entry,
+                                    src_a[:shared])
+            host.fleet.peers = host.peers
+            for kind in ("ring", "socket"):
+                fills = [steps[f"fill_b_prefix_peer_{kind}{t}"]
+                         for t in range(RING_TURNS)]
+                info[f"peer_fill_{kind}"] = {
+                    "GiB_s": med([f["GiB_s"] for f in fills]),
+                    "prefix_on_card_ms": med(info[f"prefix_on_card_{kind}"])}
             # 5: B's own pages, write-through from the host (K1, K2 here)
             wrote = step("put_b_own_host", lambda: sum(
                 host.store.append_blocks(
@@ -5053,23 +5211,36 @@ def fleet(dev) -> dict:
                 n: vars(host.peers.stats(ctl.serving[n]))
                 for n in FLEET_SERVING}
         finally:
+            if ctl is not None:
+                ctl.snap_shm()
             if host is not None:
                 host.close()
             if ctl is not None:
                 problems = ctl.close()
+                # after a failure too: a SIGKILLed child's leftovers go
+                info["shm_cleanup"] = ctl.shm.cleanup()
         require(not problems, f"phase 18: {problems}")
+    held = info["shm_cleanup"]["still_held"]
+    require(not held, f"phase 18: /dev/shm still holds {held} of its "
+            "processes")
     counts = {n: c - uncounted[n] for n, c in counts.items()}
     require_main_path("the deployment as processes", counts,
                       ("gf2_matmul", "crc32c_blocks"))
     e2e = {
         "put_leg_61_GiB_s": steps["put_leg_61"]["serving_GiB_s"],
         "put_host_GiB_s": steps["put_a_host"]["GiB_s"],
-        "peer_fill_GiB_s": steps["fill_b_prefix_peer"]["GiB_s"],
+        "peer_fill_ring_GiB_s": info["peer_fill_ring"]["GiB_s"],
+        "peer_fill_socket_GiB_s": info["peer_fill_socket"]["GiB_s"],
+        "peer_fill_ring_over_socket": info["peer_fill_ring"]["GiB_s"]
+        / info["peer_fill_socket"]["GiB_s"],
         "storage_fill_61_GiB_s":
             steps["fill_a_61_storage"]["serving_GiB_s"],
         "fill_a_62_GiB_s": steps["fill_a_62"]["serving_GiB_s"],
         "degraded_fill_GiB_s": steps["fill_b_tail_degraded"]["GiB_s"],
-        "prefix_on_card_ms": info["prefix_on_card_ms"],
+        "prefix_on_card_ring_ms":
+            info["peer_fill_ring"]["prefix_on_card_ms"],
+        "prefix_on_card_socket_ms":
+            info["peer_fill_socket"]["prefix_on_card_ms"],
         "failover_first_meta_reply_s":
             info["failover"]["first_meta_reply_s"],
         "boot_s": ctl.boot_s}
@@ -5081,11 +5252,813 @@ def fleet(dev) -> dict:
     return {n: counts[n] for n in counters()}
 
 
+# -- phase 19 ----------------------------------------------------------------
+RING_TURNS = 3                 # turns of each request on each client
+RING_CHUNKS = 32               # usrbio_bench's batch: 32 chunks of 1 MiB
+# fio_usrbio's seq-write and seq-read shape, 1 MiB blocks at depth 32, on
+# a 256 MiB file, not 1 GiB: the agent syncs the file's length with meta
+# after every block written, and meta asks every chain for its last
+# chunk, so a block costs more the longer the file (on an H100 machine a
+# 1 GiB pass took over 800 s)
+RING_API_MIB, RING_API_DEPTH = 256, 32
+RING_API_POOL = 64             # distinct 1 MiB source blocks of the API file
+# the loader's epochs read 2 of phase 13's 4 record files (2,048 of 4,096
+# records), for the script's time limit
+RING_LOADER_FILES = 2
+RING_PUSH_S = 0.5              # the storage processes' sample push period
+RING_ROUTING_TTL_S = 0.5       # both clients' routing cache
+RING_IOV_MIB = 64              # a messenger's ring iov (TPU3FS_USRBIO_IOV_MB)
+RING_MONITOR = 300
+SHM_DIR = "/dev/shm"
+SHM_PREFIXES = ("tpu3fs-iov-", "tpu3fs-ior-", "tpu3fs-hs-", "sem.tpu3fs-ior-")
+
+
+def shm_line() -> str:
+    """/dev/shm's size and free space, and the library that resolved the
+    named semaphores' ``sem_open``."""
+    from tpu3fs_torch.usrbio import sem
+
+    st = os.statvfs(SHM_DIR)
+    return (f"/dev/shm {st.f_blocks * st.f_frsize >> 20} MiB, "
+            f"{st.f_bavail * st.f_frsize >> 20} MiB free; sem_open from "
+            f"{sem.LIBRARY}")
+
+
+def shm_fits(what: str, clients: int, storage: int, peers: int = 0,
+             extra_mib: int = 0) -> dict:
+    """The rings' /dev/shm footprint at most: a client messenger maps one
+    RING_IOV_MIB iov a storage node, a storage process's two messengers
+    (forwards and resync) one a node each, a peer client one a serving
+    peer (``peers`` of them, FLEET_PEER_IOV each), every page touched at
+    setup. A footprint that does not fit /dev/shm's free space fails here
+    with a message: a page past tmpfs's limit is a SIGBUS."""
+    st = os.statvfs(SHM_DIR)
+    free = st.f_bavail * st.f_frsize >> 20
+    need = ((clients + 2 * storage) * len(SOCK_IDS) * RING_IOV_MIB
+            + peers * (FLEET_PEER_IOV >> 20) + extra_mib)
+    require(need <= free, f"{what}: the rings need up to {need} MiB of "
+            f"/dev/shm and {free} MiB are free; give the machine a larger "
+            "/dev/shm or lower TPU3FS_USRBIO_IOV_MB")
+    return {"need_mib": need, "free_mib": free}
+
+
+class ShmLedger:
+    """The /dev/shm names of one phase's own processes, the script and its
+    children. /dev/shm is the machine's, shared with whatever else runs
+    there (another checkout's tests or script), so a phase reaps and
+    checks only what its own processes mapped (``/proc/<pid>/maps``:
+    rings, iovs and the rings' semaphores), read at each ``snap``, and
+    the handshake nonce files named after its own pids."""
+
+    def __init__(self):
+        self.maps = collections.defaultdict(set)  # pid -> names it mapped
+        self.owner = {}      # ring -> the owner pid its header stamps
+        self.killed = set()  # pids SIGKILLed on purpose
+
+    def snap(self, pids) -> None:
+        for pid in pids:
+            try:
+                text = Path(f"/proc/{pid}/maps").read_text()
+            except OSError:
+                continue  # exited
+            for name in re.findall(r"/dev/shm/(\S+)", text):
+                if name.startswith(SHM_PREFIXES):
+                    self.maps[pid].add(name)
+                    if name.startswith("tpu3fs-ior-") \
+                            and name not in self.owner:
+                        self._read_owner(name)
+
+    def _read_owner(self, ring: str) -> None:
+        from tpu3fs_torch.usrbio.ring import _HDR
+
+        try:
+            with open(os.path.join(SHM_DIR, ring), "rb") as f:
+                self.owner[ring] = _HDR.unpack(f.read(_HDR.size))[-1]
+        except (OSError, struct.error):
+            pass
+
+    def cleanup(self) -> dict:
+        """After the phase (every child stopped, the script's clients
+        closed): the leftovers of the processes SIGKILLed on purpose are
+        reaped (a ring whose header names a killed owner, with its two
+        semaphores; a nonce file named after a killed pid; an iov a killed
+        process mapped and the script never did, since the script's own
+        are its clients' and unlinked when they close), and no other name
+        of the phase's processes may remain: -> the counts and the names
+        ``still_held``, which the phase requires empty."""
+        from tpu3fs_torch.usrbio.ring import HS_PREFIX
+
+        def hs_pid(name):
+            try:
+                return int(name[len(HS_PREFIX):].split("-", 1)[0])
+            except ValueError:
+                return None
+
+        ours = set().union(*self.maps.values()) if self.maps else set()
+        rings = {n for n in ours if n.startswith("tpu3fs-ior-")}
+        ours |= {f"sem.{r}-{q}" for r in rings for q in ("sq", "cq")}
+        present = {n for n in os.listdir(SHM_DIR)
+                   if n.startswith(SHM_PREFIXES)}
+        pids = set(self.maps) | self.killed
+        ours |= {n for n in present
+                 if n.startswith(HS_PREFIX) and hs_pid(n) in pids}
+        script = self.maps[os.getpid()]
+        by_killed = set().union(*(self.maps[p] for p in self.killed)) \
+            if self.killed else set()
+        left, reaped = sorted(ours & present), []
+        for name in left:
+            if name.startswith("tpu3fs-ior-") and name not in self.owner:
+                self._read_owner(name)
+            if name.startswith("sem."):
+                reap = self.owner.get(name[4:-3]) in self.killed
+            elif name.startswith("tpu3fs-ior-"):
+                reap = self.owner.get(name) in self.killed
+            elif name.startswith(HS_PREFIX):
+                reap = hs_pid(name) in self.killed
+            else:
+                reap = name in by_killed and name not in script
+            if reap:
+                try:
+                    os.unlink(os.path.join(SHM_DIR, name))
+                    reaped.append(name)
+                except FileNotFoundError:
+                    pass
+        after = sorted(n for n in ours if os.path.exists(
+            os.path.join(SHM_DIR, n)))
+        return {"names_of_the_phase": len(ours), "left": len(left),
+                "reaped": len(reaped), "still_held": after}
+
+
+def transport_calls(messenger) -> collections.Counter:
+    """(transport, method) -> data-plane calls the messenger issued."""
+    out = collections.Counter()
+    for (transport, method, _), n in list(messenger.transport_calls.items()):
+        out[(transport, method)] += n
+    return out
+
+
+def require_transport(what: str, before, after, transport: str) -> dict:
+    """Every data-plane call between the two counts rode ``transport``,
+    and there was at least one."""
+    delta = after - before
+    other = {k: v for k, v in delta.items() if k[0] != transport}
+    require(not other, f"{what}: {other} left the {transport} transport")
+    n = sum(delta.values())
+    require(n > 0, f"{what}: no data-plane call was issued")
+    return {f"{m}": v for (_, m), v in sorted(delta.items())}
+
+
+class RingProcesses(SockProcesses):
+    """Phase 19: phase 17 (b)'s cluster with the storage processes on the
+    JAX package's default ``usrbio=1`` (each hosts rings, and its own
+    messengers ride rings to the other storage processes), and a
+    ``monitor_main`` to which each storage process pushes its samples
+    every RING_PUSH_S (its ``usrbio.completed`` and ``usrbio.bytes``)."""
+
+    env = {"TPU3FS_USRBIO": "1"}
+
+    def _boot(self) -> None:
+        self.mon_addr = ("127.0.0.1", free_port())
+        self._start("monitor", "monitor_main", RING_MONITOR, [
+            "--port", str(self.mon_addr[1]),
+            f"--config.out_path={self.logdir / 'samples.db'}"])
+        super()._boot()
+
+    def _storage(self, node_id: int) -> None:
+        self._start(f"storage{node_id}", "storage_main", node_id, [
+            "--mgmtd=%s:%d" % self.maddr, "--heartbeat_interval", "0.5",
+            "--config.engine=mem",
+            "--config.target_scan_interval_s=0.5",
+            "--config.resync_interval_s=0.5",
+            f"--config.collector={self.mon_addr[0]}:{self.mon_addr[1]}",
+            f"--config.monitor_push_period_s={RING_PUSH_S}"])
+
+    def fail(self, node_id: int) -> None:
+        super().fail(node_id)
+        time.sleep(RING_ROUTING_TTL_S)  # the clients' routing caches
+
+    def restart(self, node_id: int) -> None:
+        super().restart(node_id)
+        time.sleep(RING_ROUTING_TTL_S)
+
+
+class RingSide:
+    """One of phase 19's two clients over the same processes: the ring
+    client (``TPU3FS_USRBIO=1``) or the socket client (``0``), each read
+    when its messenger is built. A ``StorageClient`` on ``dev`` over a
+    TTL-cached routing (``RING_ROUTING_TTL_S``), its ``FileIoClient`` and a
+    ``MetaRpcClient``."""
+
+    def __init__(self, ctl, dev, rings: bool):
+        from unittest import mock
+
+        from tpu3fs_torch.client.file_io import FileIoClient
+        from tpu3fs_torch.client.storage_client import StorageClient
+        from tpu3fs_torch.rpc.services import (MetaRpcClient, MgmtdRpcClient,
+                                               RpcMessenger)
+
+        self.name = "ring" if rings else "socket"
+        self.routing = MgmtdRpcClient(
+            ctl.maddr, routing_ttl_s=RING_ROUTING_TTL_S).refresh_routing
+        with mock.patch.dict(os.environ,
+                             {"TPU3FS_USRBIO": "1" if rings else "0"}):
+            self.messenger = RpcMessenger(self.routing)
+        self.sc = StorageClient(f"smoke-{self.name}", self.routing,
+                                self.messenger, device=dev)
+        self.fio = FileIoClient(self.sc)
+        self.meta = MetaRpcClient([ctl.meta_addr],
+                                  client_id=f"smoke-{self.name}")
+
+    def connect(self) -> None:
+        """The ring client's rings to every storage node, made one at a
+        time before any request (concurrent first calls to one node ride
+        sockets while its handshake runs, as in the JAX package)."""
+        if self.name == "ring":
+            for node_id in SOCK_IDS:
+                require(self.messenger._ring_for(node_id) is not None,
+                        f"no ring to storage node {node_id}")
+
+    def calls(self) -> collections.Counter:
+        return transport_calls(self.messenger)
+
+    def ring_counts(self, node_id: int) -> tuple:
+        """(completions, bytes moved) of this client's ring to the node."""
+        ring = self.messenger._usrbio_rings.get(node_id)
+        return (ring.completions, ring.bytes_moved) if ring else (0, 0)
+
+    def close(self) -> None:
+        self.fio.close()
+        self.sc.close()
+
+
+def ring_turns(sides: dict, fn) -> dict:
+    """``fn(side, turn)`` on both clients, RING_TURNS turns, the order
+    rotated each turn (ring first, then socket first, ...); every call of
+    the ring client must ride rings only, every call of the socket client
+    sockets only. -> client name -> [fn's result a turn]."""
+    out = {"ring": [], "socket": []}
+    for turn in range(RING_TURNS):
+        order = ("ring", "socket") if turn % 2 == 0 else ("socket", "ring")
+        for name in order:
+            side = sides[name]
+            before = side.calls()
+            out[name].append(fn(side, turn))
+            require_transport(f"{name} client, turn {turn}", before,
+                              side.calls(), name)
+    return out
+
+
+def med(values) -> float:
+    return float(np.median(values))
+
+
+def ring_ratio(rows: dict, key: str) -> dict:
+    """Medians of ``key`` over the turns of each client, and ring/socket."""
+    ring = med([r[key] for r in rows["ring"]])
+    sock = med([r[key] for r in rows["socket"]])
+    return {"ring": ring, "socket": sock,
+            "ring_over_socket": ring / sock if sock else None}
+
+
+def ring_bench(sides: dict) -> dict:
+    """usrbio_bench's shape on the CR chain: ``batch_write`` then
+    ``batch_read`` of 32 chunks of 1 MiB, then 32 single ``write_chunk``
+    and ``read_chunk`` calls; every byte read checked."""
+    from tpu3fs_torch.storage.craq import ReadReq
+    from tpu3fs_torch.storage.types import ChunkId
+
+    rng = np.random.default_rng(1919)
+    data = [rng.integers(0, 256, MIB, dtype=np.uint8).tobytes()
+            for _ in range(RING_CHUNKS)]
+    gib = RING_CHUNKS * MIB / (1 << 30)
+
+    def run(side, turn):
+        fid = 19_000 + 10 * turn + (side.name == "socket")
+        sc, row = side.sc, {}
+        writes = [(SOCK_CR_CHAIN, ChunkId(fid, i), 0, data[i])
+                  for i in range(RING_CHUNKS)]
+        t0 = time.perf_counter()
+        got = sc.batch_write(writes, chunk_size=MIB)
+        row["batch_write_s"] = time.perf_counter() - t0
+        require(all(r.ok for r in got), f"{side.name}: a batch write failed")
+        t0 = time.perf_counter()
+        got = sc.batch_read([ReadReq(SOCK_CR_CHAIN, ChunkId(fid, i), 0, -1)
+                             for i in range(RING_CHUNKS)])
+        row["batch_read_s"] = time.perf_counter() - t0
+        require([bytes(r.data) for r in got] == data,
+                f"{side.name}: the batch read's bytes differ")
+        del got
+        t0 = time.perf_counter()
+        for i in range(RING_CHUNKS):
+            require(sc.write_chunk(SOCK_CR_CHAIN, ChunkId(fid + 5, i), 0,
+                                   data[i], chunk_size=MIB).ok,
+                    f"{side.name}: a single write failed")
+        row["write_op_ms"] = (time.perf_counter() - t0) * 1e3 / RING_CHUNKS
+        t0 = time.perf_counter()
+        for i in range(RING_CHUNKS):
+            r = sc.read_chunk(SOCK_CR_CHAIN, ChunkId(fid + 5, i))
+            require(r.ok and bytes(r.data) == data[i],
+                    f"{side.name}: a single read's bytes differ")
+        row["read_op_ms"] = (time.perf_counter() - t0) * 1e3 / RING_CHUNKS
+        row["batch_write_GiB_s"] = gib / row["batch_write_s"]
+        row["batch_read_GiB_s"] = gib / row["batch_read_s"]
+        return row
+
+    rows = ring_turns(sides, run)
+    return {"turns": rows, **{k: ring_ratio(rows, k) for k in (
+        "batch_write_GiB_s", "batch_read_GiB_s", "write_op_ms",
+        "read_op_ms")}}
+
+
+def ring_files(ctl, sides: dict, dev, inputs: dict, uncounted,
+               collector) -> dict:
+    """Phase 17's file requests: /a (48 RS(12,4) stripes of 1 MiB) written
+    and read by each client in turns; the first storage process SIGKILLed
+    and every file read degraded (K1 decodes here); a new process on empty
+    targets, rebuilt by the storage processes over their own rings; every
+    file read again, and a sample of stored shards held against twins
+    encoded on the card. The storage processes' own data-plane calls by
+    transport during the rebuild (their ``usrbio.calls_*`` pushes) show
+    how much of it rode rings."""
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.storage.craq import ReadReq
+    from tpu3fs_torch.storage.types import ChunkId
+
+    body = inputs["a"]
+    mib = len(body) / MIB
+    files = {}
+
+    def write_read(side, turn):
+        path = f"/rings/{side.name}{turn}"
+        res = side.meta.create(path, flags=OpenFlags.WRITE
+                               | OpenFlags.CREATE, client_id=side.meta.client_id)
+        t0 = time.perf_counter()
+        side.fio.write(res.inode, 0, body)
+        w = time.perf_counter() - t0
+        inode = side.meta.close(res.inode.id, res.session_id)
+        files[path] = inode
+        t0 = time.perf_counter()
+        got = side.fio.read(inode, 0, len(body))
+        r = time.perf_counter() - t0
+        require(got == body, f"{path}: the bytes read differ")
+        return {"write_MiB_s": mib / w, "read_MiB_s": mib / r}
+
+    def degraded(side, turn):
+        inode = files[f"/rings/{side.name}{turn}"]
+        t0 = time.perf_counter()
+        got = side.fio.read(inode, 0, len(body))
+        r = time.perf_counter() - t0
+        require(got == body, f"{side.name}{turn}: the degraded bytes differ")
+        return {"degraded_MiB_s": mib / r}
+
+    sides["ring"].meta.mkdirs("/rings", recursive=True)
+    rows = ring_turns(sides, write_read)
+    victim = SOCK_IDS[0]
+    ctl.fail(victim)
+    deg = ring_turns(sides, degraded)
+    split0 = collector.settled()
+    ctl.restart(victim)
+    t0 = time.perf_counter()
+    ctl.rebuild()
+    rebuild_s = time.perf_counter() - t0
+    split1 = collector.settled()
+    # the victim's shards of every file, read back from it over a ring
+    ring = sides["ring"]
+    ring.connect()
+    r = ring.routing()
+    reqs = []
+    for inode in files.values():
+        for i in range(-(-len(body) // MIB)):
+            chain = r.chains[inode.layout.chain_of_chunk(i)]
+            for t in chain.targets:
+                if r.targets[t.target_id].node_id == victim:
+                    reqs.append(ReadReq(chain.chain_id, ChunkId(inode.id, i),
+                                        target_id=t.target_id))
+    calls0 = ring.calls()
+    replies = read_shards(ring.sc, victim, reqs)
+    require(all(rp.ok for rp in replies), "a rebuilt shard is unreadable")
+    lost = sum(len(rp.data) for rp in replies)
+    del replies
+
+    def reread(side, turn):
+        path = f"/rings/{side.name}{turn}"
+        t0 = time.perf_counter()
+        got = side.fio.read(files[path], 0, len(body))
+        require(got == body, f"{path}: the bytes after the rebuild differ")
+        return {"read_after_rebuild_MiB_s": mib / (time.perf_counter() - t0)}
+
+    after = ring_turns(sides, reread)
+    c0 = read_counts()
+    shards = sock_shards(ring.sc, ring.routing(), files["/rings/ring0"],
+                         body, dev)
+    c1 = read_counts()
+    uncounted.update({k: c1[k] - c0[k] for k in c1})
+    require_transport("the shard reads of the ring client", calls0,
+                      ring.calls(), "ring")
+    for key, turns in deg.items():
+        for row, d in zip(rows[key], turns):
+            row.update(d)
+    return {"turns": rows, "read_after_rebuild": ring_ratio(
+                after, "read_after_rebuild_MiB_s"),
+            **{k: ring_ratio(rows, k) for k in (
+                "write_MiB_s", "read_MiB_s", "degraded_MiB_s")},
+            "rebuild": {"s": rebuild_s, "lost_bytes": lost,
+                        "lost_shards": len(reqs),
+                        "MiB_s": lost / MIB / rebuild_s,
+                        "storage_process_calls": {
+                            k: split1[k] - split0[k] for k in (
+                                "usrbio.calls_ring", "usrbio.calls_socket",
+                                "usrbio.completed", "usrbio.bytes")}},
+            "shards_checked": shards}
+
+
+class RingCollector:
+    """The collector of RingProcesses: the usrbio.* totals every storage
+    process pushed (``aggQuery``, one row a name: the recorders carry no
+    node tag), read once two reads a push period apart agree."""
+
+    NAMES = ("usrbio.completed", "usrbio.bytes", "usrbio.calls_ring",
+             "usrbio.calls_socket")
+
+    def __init__(self, ctl):
+        from tpu3fs_torch.rpc.net import RpcClient
+
+        self.addr, self.cli = ctl.mon_addr, RpcClient()
+
+    def totals(self) -> dict:
+        from tpu3fs_torch.monitor.collector import (COLLECTOR_SERVICE_ID,
+                                                    AggQueryReq, AggQueryRsp)
+
+        rsp = self.cli.call(self.addr, COLLECTOR_SERVICE_ID, 3,
+                            AggQueryReq(name="usrbio.", prefix=True,
+                                        window_s=3600.0), AggQueryRsp)
+        got = collections.Counter()
+        for row in rsp.rows:
+            got[row.name] += row.vsum
+        return {n: int(got[n]) for n in self.NAMES}
+
+    def settled(self) -> dict:
+        prev = None
+        deadline = time.monotonic() + 60.0
+        while True:
+            time.sleep(2.5 * RING_PUSH_S)
+            cur = self.totals()
+            if cur == prev:
+                return cur
+            require(time.monotonic() < deadline,
+                    "the collector's usrbio totals never settled")
+            prev = cur
+
+    def close(self) -> None:
+        self.cli.close()
+
+
+def ring_recorders(sides: dict, inputs: dict, collector) -> dict:
+    """Each storage process's own ``usrbio.completed`` and ``usrbio.bytes``
+    (its pushes, summed by the collector) against the ring client's
+    counts: one window a node, in which only the ring client calls it
+    (the node's shards of a file over ``batchReadRebuild``); a window
+    opens and closes on settled totals."""
+    from tpu3fs_torch.storage.craq import ReadReq
+    from tpu3fs_torch.storage.types import ChunkId
+
+    ring = sides["ring"]
+    inode = ring.meta.stat("/rings/ring1")
+    r = ring.routing()
+    out = {}
+    t0 = collector.settled()
+    for node_id in SOCK_IDS:
+        reqs = []
+        for i in range(-(-len(inputs["a"]) // MIB)):
+            chain = r.chains[inode.layout.chain_of_chunk(i)]
+            for t in chain.targets:
+                if r.targets[t.target_id].node_id == node_id:
+                    reqs.append(ReadReq(chain.chain_id, ChunkId(inode.id, i),
+                                        target_id=t.target_id))
+        c0, calls0 = ring.ring_counts(node_id), ring.calls()
+        replies = read_shards(ring.sc, node_id, reqs)
+        require(all(rp.ok for rp in replies), f"node {node_id}: a shard "
+                "read failed")
+        del replies
+        require_transport(f"node {node_id}'s window", calls0, ring.calls(),
+                          "ring")
+        c1 = ring.ring_counts(node_id)
+        t1 = collector.settled()
+        client = (c1[0] - c0[0], c1[1] - c0[1])
+        host = (t1["usrbio.completed"] - t0["usrbio.completed"],
+                t1["usrbio.bytes"] - t0["usrbio.bytes"])
+        out[node_id] = {"client": client, "storage_process": host}
+        require(client[0] > 0 and host == client, f"node {node_id}: the "
+                f"storage process counted (completed, bytes) {host}, the "
+                f"ring client {client}")
+        t0 = t1
+    return out
+
+
+def ring_loader(ctl, sides: dict, dev, data: dict, mesh,
+                stall: dict) -> dict:
+    """Phase 16's loader over each client: the first RING_LOADER_FILES of
+    phase 13's 4 record files packed once (over the ring client), then one
+    shuffled,
+    CRC-verified epoch at depth 4 with 1, 2 and 4 fetch workers, each
+    client in turns; every batch a DTensor on the card equal to its
+    records, every epoch the same (epoch, step, ids)."""
+    from tpu3fs_torch.client.file_io import FileIoClient
+    from tpu3fs_torch.dataload import (DataLoader, LoaderConfig,
+                                       PackedDataset, RecordFileWriter)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tokens = data["tokens"]
+    ring = sides["ring"]
+    ring.meta.mkdirs("/rdata", recursive=True)
+    per = data["records"] // data["files"]
+    records = per * RING_LOADER_FILES
+    paths = [f"/rdata/tokens{i}.rec" for i in range(RING_LOADER_FILES)]
+    t0 = time.perf_counter()
+    for i, path in enumerate(paths):
+        w = RecordFileWriter(ring.meta, ring.fio, path, num_records=per)
+        for rec in data["host"][i * per:(i + 1) * per]:
+            w.append(rec)
+        w.commit()
+    pack_s = time.perf_counter() - t0
+    cfg = dict(global_batch=data["batch"], seed=5, dtype="<i4",
+               sample_shape=(SEQ_TOKENS,), depth=FETCH_DEPTH, epochs=1)
+    first = {}
+
+    def check(b):
+        local = b.data.to_local()
+        require(isinstance(b.data, DTensor) and tuple(b.data.shape)
+                == (data["batch"], SEQ_TOKENS)
+                and b.data.placements == (Shard(0), Replicate())
+                and torch.equal(local, tokens[torch.tensor(
+                    b.ids, device=tokens.device)]),
+                f"batch {b.step}: its tokens differ from the records")
+        return (b.epoch, b.step, b.ids)
+
+    def epoch(side, workers, key):
+        fio = FileIoClient(side.sc)
+        try:
+            ds = PackedDataset(side.meta, fio, paths)
+            t0 = time.perf_counter()
+            with DataLoader(ds, LoaderConfig(workers=workers, **cfg),
+                            mesh=mesh) as ld:
+                got = [check(b) for b in ld]
+                (stall[key],) = ld._stall_ms.collect(0.0)
+            s = time.perf_counter() - t0
+        finally:
+            fio.close()
+        require_no_workers(key)
+        first.setdefault("epoch", got)
+        require(got == first["epoch"], f"{key}: its batches differ")
+        return s
+
+    def run(side, turn):
+        return {f"w{w}_samples_s": records / epoch(
+            side, w, f"{side.name}_w{w}_{turn}") for w in (1, 2, 4)}
+
+    rows = ring_turns(sides, run)
+    ids = sorted(i for _, _, b in first["epoch"] for i in b)
+    require(ids == list(range(records)),
+            "the epoch did not cover every record once")
+    return {"pack_s": pack_s, "records": records, "turns": rows,
+            **{k: ring_ratio(rows, k) for k in (
+                "w1_samples_s", "w2_samples_s", "w4_samples_s")},
+            "w4_over_w1": {n: med([r["w4_samples_s"] / r["w1_samples_s"]
+                                   for r in rows[n]]) for n in rows}}
+
+
+def api_block(pool: np.ndarray, i: int) -> np.ndarray:
+    """Block ``i`` of the API file: source block ``i % RING_API_POOL``
+    with its first 8 bytes replaced by ``i``."""
+    b = pool[i % RING_API_POOL].copy()
+    b[:8] = np.frombuffer(np.uint64(i).tobytes(), np.uint8)
+    return b
+
+
+def api_pass(client, path: str, pool: np.ndarray, write: bool) -> float:
+    """``RING_API_MIB`` blocks of 1 MiB through the ``hf3fs_usrbio`` API at
+    depth RING_API_DEPTH: ``iovcreate``, ``iorcreate``, ``reg_fd``, then
+    ``prep_io`` into each free slot, ``submit_ios`` and ``wait_for_ios``
+    until every block is done; a write stages each block into its slot, a
+    read checks each block against its source as it completes. ->
+    seconds from the first prep to the last completion."""
+    n = RING_API_MIB
+    iov = client.iovcreate(RING_API_DEPTH * MIB)
+    ring = client.iorcreate(2 * RING_API_DEPTH, [iov], for_read=not write)
+    view = np.frombuffer(iov.buf, np.uint8)
+    fd = client.reg_fd(path, write=write)
+    try:
+        free, nxt, done = list(range(RING_API_DEPTH)), 0, 0
+        slot_of = {}
+        t0 = time.perf_counter()
+        while done < n:
+            while free and nxt < n:
+                slot = free.pop()
+                off = slot * MIB
+                if write:
+                    view[off:off + MIB] = api_block(pool, nxt)
+                client.prep_io(ring, iov, off, MIB, fd, nxt * MIB,
+                               read=not write, userdata=nxt)
+                slot_of[nxt] = slot
+                nxt += 1
+            client.submit_ios(ring)
+            for res, blk in client.wait_for_ios(ring, 1, timeout=120):
+                require(res == MIB, f"{path}: block {blk} completed {res}")
+                slot = slot_of.pop(blk)
+                if not write:
+                    off = slot * MIB
+                    require(np.array_equal(view[off:off + MIB],
+                                           api_block(pool, blk)),
+                            f"{path}: block {blk} differs from its source")
+                free.append(slot)
+                done += 1
+        s = time.perf_counter() - t0
+    finally:
+        client.dereg_fd(fd, length_hint=n * MIB if write else None)
+        del view
+        client.iordestroy(ring)
+        client.iovdestroy(iov)
+    return s
+
+
+def ring_api(sides: dict) -> tuple:
+    """The ``hf3fs_usrbio`` API: a ``UsrbioAgent`` in this process over
+    each client's ``FileIoClient`` and meta, a ``UsrbioClient`` on it; a
+    RING_API_MIB file written sequentially in 1 MiB blocks at depth 32
+    (the fio_usrbio seq-write shape) and read back the same way, each
+    client in turns, every block checked against its source. A turn's
+    files are removed after it, but the last turn's (read again later,
+    degraded: ``ring_api_degraded``): the agent's per-block length sync
+    scans every chunk of a target, so files left behind would slow the
+    later turns. -> (the leg's record, the agents and clients)."""
+    from tpu3fs_torch.usrbio import UsrbioAgent, UsrbioClient
+
+    rng = np.random.default_rng(1920)
+    pool = rng.integers(0, 256, (RING_API_POOL, MIB), dtype=np.uint8)
+    gib = RING_API_MIB / 1024
+    agents = {n: UsrbioAgent(s.meta, s.fio, client_id=f"usrbio-{n}")
+              for n, s in sides.items()}
+    api = SimpleNamespace(pool=pool, agents=agents, clients={
+        n: UsrbioClient(a) for n, a in agents.items()})
+    sides["ring"].meta.mkdirs("/api", recursive=True)
+
+    def run(side, turn):
+        path = f"/api/{side.name}{turn}"
+        w = api_pass(api.clients[side.name], path, pool, True)
+        require(side.meta.stat(path).length == RING_API_MIB * MIB,
+                f"{path}: its length")
+        r = api_pass(api.clients[side.name], path, pool, False)
+        if turn < RING_TURNS - 1:
+            side.meta.remove(path)
+        return {"seq_write_GiB_s": gib / w, "seq_read_GiB_s": gib / r}
+
+    try:
+        rows = ring_turns(sides, run)
+    except BaseException:
+        ring_api_close(api)
+        raise
+    return {"turns": rows, **{k: ring_ratio(rows, k) for k in (
+        "seq_write_GiB_s", "seq_read_GiB_s")}}, api
+
+
+def ring_api_degraded(ctl, sides: dict, api) -> dict:
+    """The second storage process SIGKILLed; each client's last API file
+    read again through the API (degraded: K1 decodes here), in the order
+    of the last turn."""
+    gib = RING_API_MIB / 1024
+    ctl.fail(SOCK_IDS[1])
+    last = RING_TURNS - 1
+    out = {}
+    for name in ("ring", "socket") if last % 2 == 0 else ("socket", "ring"):
+        side = sides[name]
+        before = side.calls()
+        out[name] = gib / api_pass(api.clients[name], f"/api/{name}{last}",
+                                   api.pool, False)
+        require_transport(f"{name} degraded API read", before, side.calls(),
+                          name)
+    out["ring_over_socket"] = out["ring"] / out["socket"]
+    return out
+
+
+def ring_api_close(api) -> None:
+    for agent in api.agents.values():
+        agent.stop()
+
+
+def rings(dev, full: dict) -> dict:
+    """Phase 19: the USRBIO rings between processes. Phase 17 (b)'s
+    cluster (RingProcesses) with a ring client and a socket client over
+    the same processes, every request on both in rotated turns: the
+    usrbio_bench shape, phase 17's file requests with a SIGKILL, the
+    rebuild and the storage processes' recorders against the client's
+    counts, phase 16's loader at 1, 2 and 4 workers, and the hf3fs_usrbio
+    API on a RING_API_MIB file. Every byte is checked; every ring call of the
+    ring client rides a ring and every call of the socket client a
+    socket; K1 and K2 launch here as tensor-core kernels, no plain
+    version; no segment or semaphore is left in /dev/shm. -> the script's
+    launches."""
+    import tempfile
+
+    t_phase = phase("phase 19: the USRBIO rings")
+    info = {"shm": shm_fits("phase 19", clients=1, storage=len(SOCK_IDS),
+                            extra_mib=RING_API_DEPTH)}
+    log(f"  {shm_line()}; the rings need up to "
+        f"{info['shm']['need_mib']} MiB")
+    inputs = sock_inputs()
+    uncounted, stall = collections.Counter(), {}
+    ctl, sides, problems, legs, collector, api = None, {}, [], {}, None, None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            ctl = RingProcesses(Path(tmp), "cuda" if dev.type == "cuda"
+                                else "cpu")
+            log(f"  booted {len(ctl.procs)} processes in {ctl.boot_s:.1f} s")
+            sides = {"ring": RingSide(ctl, dev, True),
+                     "socket": RingSide(ctl, dev, False)}
+            collector = RingCollector(ctl)
+            sock_warm(ctl, dev)  # first installs, codecs, connections
+            sides["ring"].connect()
+            zero_counts()
+            # the API first: its per-block length sync scans every chunk
+            # of a target, so it runs before the other legs fill them
+            t0 = time.perf_counter()
+            legs["api"], api = ring_api(sides)
+            ctl.snap_shm()  # the names each leg's rings had
+            log(f"  api {time.perf_counter() - t0:.1f} s: "
+                + json.dumps({k: v for k, v in legs["api"].items()
+                              if k != "turns"}))
+            t0 = time.perf_counter()
+            legs["bench"] = ring_bench(sides)
+            log(f"  bench {time.perf_counter() - t0:.1f} s: "
+                + json.dumps({k: v for k, v in legs["bench"].items()
+                              if k != "turns"}))
+            t0 = time.perf_counter()
+            legs["files"] = ring_files(ctl, sides, dev, inputs, uncounted,
+                                       collector)
+            ctl.snap_shm()
+            log(f"  files {time.perf_counter() - t0:.1f} s: "
+                + json.dumps({k: v for k, v in legs["files"].items()
+                              if k != "turns"}))
+            t0 = time.perf_counter()
+            legs["recorders"] = ring_recorders(sides, inputs, collector)
+            log(f"  recorders {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["recorders"]))
+            t0 = time.perf_counter()
+            with one_rank_group(dev) as mesh:
+                legs["loader"] = ring_loader(ctl, sides, dev, full, mesh,
+                                             stall)
+                ctl.snap_shm()
+            log(f"  loader {time.perf_counter() - t0:.1f} s: "
+                + json.dumps({k: v for k, v in legs["loader"].items()
+                              if k != "turns"}))
+            t0 = time.perf_counter()
+            legs["api"]["degraded_seq_read_GiB_s"] = ring_api_degraded(
+                ctl, sides, api)
+            log(f"  api degraded {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["api"]["degraded_seq_read_GiB_s"]))
+            counts = read_counts()
+            if dev.type == "cuda":
+                info["on_card"] = sock_on_card(ctl.pid_of("storage"))
+            info["calls"] = {n: {f"{t}:{m}": v for (t, m), v in
+                                 sorted(s.calls().items())}
+                             for n, s in sides.items()}
+            info["storage_processes"] = collector.settled()
+            info["boot_s"] = ctl.boot_s
+        finally:
+            if ctl is not None:
+                ctl.snap_shm()
+            if api is not None:
+                ring_api_close(api)
+            for side in sides.values():
+                side.close()
+            if collector is not None:
+                collector.close()
+            if ctl is not None:
+                problems = ctl.close()
+                # after a failure too: a SIGKILLed child's leftovers go
+                info["shm_cleanup"] = ctl.shm.cleanup()
+        require(not problems, f"phase 19: {problems}")
+    held = info["shm_cleanup"]["still_held"]
+    require(not held, f"phase 19: /dev/shm still holds {held} of its "
+            "processes")
+    counts = {n: c - uncounted[n] for n, c in counts.items()}
+    require_main_path("the USRBIO rings", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    log(json.dumps({"rings": legs, "info": info, "launches": counts,
+                    "stall": {k: {a: getattr(v, a) for a in (
+                        "count", "p50", "p99", "max")}
+                        for k, v in stall.items()},
+                    "card": card_line(),
+                    "seconds": time.perf_counter() - t_phase}, default=str))
+    log(f"rings: launches {counts} ({time.perf_counter() - t_phase:.1f} s)")
+    return {n: counts[n] for n in counters()}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
     import tpu3fs_torch  # noqa: F401  (fails when run outside the repo)
 
+    log(shm_line())
     dev = torch.device("cuda")
     build()
     if sys.argv[1:] == ["--fold-variants"]:
@@ -5119,6 +6092,9 @@ def main() -> int:
     if sys.argv[1:] == ["--fleet"]:
         fleet(dev)
         return 0
+    if sys.argv[1:] == ["--rings"]:
+        rings(dev, train_data(dev, TRAIN_FULL))
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -5141,8 +6117,9 @@ def main() -> int:
     paths["fetch"], fetch_card = fetch(dev, train_full)
     paths["sockets"] = sockets(dev, train_full)
     paths["fleet"] = fleet(dev)
+    paths["rings"] = rings(dev, train_full)
     for row in kernels:
-        for path in ("fetch", "sockets", "fleet"):
+        for path in ("fetch", "sockets", "fleet", "rings"):
             row["launches_by_path"][path] = paths[path][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)

@@ -9,9 +9,12 @@ a file through ``MetaRpcClient`` and ``StorageClient`` over
 keeps writing after a node's death. A storage node started as its own
 process (``python -m tpu3fs_torch.bin.storage_main --device cpu``) joins
 an in-process mgmtd, serves a write and a read and exits 0 on SIGTERM
-within 10 s. The options the port does not have (the USRBIO rings and
-the native transport and engine) raise ``NotImplementedError`` naming
-their ROADMAP item; the network KV (``--kv``, one kvd or a group), the
+within 10 s. The storage and serving apps host USRBIO rings by default
+(``usrbio=1``, ``peer_usrbio=1``) and the messenger rides them unless
+``TPU3FS_USRBIO=0``, as in the JAX package; a client of the in-process
+cluster is shown riding a ring. The options the port does not have (the
+native transport and engine) raise ``NotImplementedError`` naming their
+ROADMAP item; the network KV (``--kv``, one kvd or a group), the
 sharded metadata plane (``--meta-partitions``) and the in-memory stubs
 serve. An app with no card and no device raises at construction. A received bulk segment is
 copied on install and never written. Every wait is bounded and no
@@ -257,16 +260,25 @@ def _kv_app(flags):
 @pytest.mark.parametrize("build,item", [
     (lambda: MgmtdApp(["--rpc", "native"], **CPU).init_server(), "M6a-3"),
     (lambda: StorageApp(["--config.engine=native"], **CPU), "M6a-3"),
-    (lambda: StorageApp(["--config.usrbio=1"], **CPU), "M6a-3"),
     (lambda: StubFactory("native"), "M6a-3"),
-    (lambda: _serving_app(["--config.usrbio=1"]), "M6a-3"),
-    (lambda: _serving_app(["--config.peer_usrbio=1"]), "M6a-3"),
     (lambda: _kv_app([]), "M6a-3"),
-], ids=["rpc-native", "engine-native", "usrbio", "stubs-native",
-        "serving-usrbio", "serving-peer-usrbio", "kv-rpc-native"])
+], ids=["rpc-native", "engine-native", "stubs-native", "kv-rpc-native"])
 def test_unported_options_raise(build, item):
     with pytest.raises(NotImplementedError, match=item):
         build()
+
+
+@pytest.mark.parametrize("build,key", [
+    (lambda flags: StorageApp(flags, **CPU), "usrbio"),
+    (_serving_app, "usrbio"),
+    (_serving_app, "peer_usrbio"),
+], ids=["usrbio", "serving-usrbio", "serving-peer-usrbio"])
+@pytest.mark.parametrize("flag", [None, 0, 1], ids=["default", "off", "on"])
+def test_ring_options_follow_the_jax_defaults(build, key, flag):
+    """Each ring option is 1 unless set, as in the JAX package, and the
+    app takes 0 and 1 alike."""
+    app = build([] if flag is None else [f"--config.{key}={flag}"])
+    assert int(app.config.get(key)) == (1 if flag is None else flag)
 
 
 @pytest.fixture
@@ -402,15 +414,39 @@ def test_ported_options_work(kvd, run):
 
 
 def test_ring_request_raises(monkeypatch):
-    """The JAX messenger rides shm rings unless TPU3FS_USRBIO=0; asking the
-    port's for rings raises, and it never falls back to a socket."""
+    """The messenger rides shm rings unless TPU3FS_USRBIO=0, with the JAX
+    package's ring settings (128 entries, a 64 MiB iov, one write
+    stripe); asking for rings raises nothing."""
     monkeypatch.setenv("TPU3FS_USRBIO", "1")
-    with pytest.raises(NotImplementedError, match="M6a-3"):
-        RpcMessenger(lambda: None)
+    assert RpcMessenger(lambda: None)._usrbio
     monkeypatch.delenv("TPU3FS_USRBIO")
-    RpcMessenger(lambda: None)  # unset: sockets, the port's only transport
+    m = RpcMessenger(lambda: None)
+    assert m._usrbio and m._usrbio_entries == 128
+    assert m._usrbio_iov_bytes == 64 << 20 and m._ring_write_stripes == 1
     monkeypatch.setenv("TPU3FS_USRBIO", "0")
-    RpcMessenger(lambda: None)
+    assert not RpcMessenger(lambda: None)._usrbio
+
+
+def test_cluster_client_rides_a_ring(cluster):
+    """The in-process cluster's storage apps host rings: a client's data
+    plane rides one to each node it calls, and no call takes a socket."""
+    mgmtd, storages, meta, admin = cluster
+    mc = MetaRpcClient([(meta.info.hostname, meta.info.port)], client_id="r")
+    rsp = mc.create("/ring.bin", flags=OpenFlags.WRITE | OpenFlags.CREATE)
+    fio = _file_client(admin, "ring")
+    try:
+        body = bytes(range(256)) * 300
+        fio.write(rsp.inode, 0, body)
+        assert fio.read(rsp.inode, 0, len(body)) == body
+        messenger = fio.storage._messenger
+        rings = {n: r for n, r in messenger._usrbio_rings.items() if r}
+        assert rings and all(r.agent_pid == os.getpid()
+                             for r in rings.values())
+        calls = messenger.transport_calls
+        assert calls and {t for t, _, _ in calls} == {"ring"}
+    finally:
+        fio.close()
+        fio.storage.close()
 
 
 def test_empty_kv_flag_is_the_memory_engine():

@@ -1,6 +1,9 @@
 """Rules the port keeps: tpu3fs_torch and chip_smoke.py import neither jax
-nor tpu3fs; importing the package (its transport, service layer, apps and
-binaries included) touches no CUDA and no triton, and the kvd and the
+nor tpu3fs (the USRBIO rings of ``tpu3fs_torch/usrbio/`` keep their own
+copy, semaphores included); importing the package (its transport, rings,
+service layer, apps and binaries included) touches no CUDA and no triton,
+and the ring-hosting apps default to the card and raise without one; the
+kvd and the
 collector boot without a CUDA context; entry points default to the card
 and raise without one; the kernel build directory is git-ignored, and
 processes that load the library at once on a fresh tree run nvcc once."""
@@ -269,3 +272,47 @@ def test_kernel_build_runs_nvcc_once_across_processes(tmp_path):
     calls = count.read_text().splitlines()
     assert len(calls) == 2, calls  # one compile of a.cu and one link
     assert sum("-shared" in c for c in calls) == 1
+
+
+USRBIO_MODULES = ("__init__", "sem", "ring", "transport", "server", "agent",
+                  "api")
+
+
+@pytest.mark.parametrize("name", USRBIO_MODULES)
+def test_usrbio_module_is_the_ports_own(name):
+    """Each USRBIO module is the port's own file, scanned by the import
+    rule above, and none loads a module of the JAX package at run time."""
+    path = ROOT / "tpu3fs_torch" / "usrbio" / f"{name}.py"
+    assert path in PORT_FILES
+    text = path.read_text()
+    assert "importlib" not in text and "__import__" not in text
+
+
+def test_import_usrbio_touches_no_cuda_and_loads_no_jax_package():
+    code = ("import sys, torch, tpu3fs_torch.usrbio, "
+            "tpu3fs_torch.usrbio.sem, tpu3fs_torch.usrbio.agent, "
+            "tpu3fs_torch.usrbio.api, tpu3fs_torch.usrbio.server; "
+            "print(torch.cuda.is_initialized(), 'triton' in sys.modules, "
+            "any(m == 'jax' or m == 'tpu3fs' or m.startswith(('jax.', "
+            "'tpu3fs.')) for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "False"]
+
+
+@pytest.mark.parametrize("module,cls", [
+    ("tpu3fs_torch.bin.storage_main", "StorageApp"),
+    ("tpu3fs_torch.bin.serving_main", "ServingApp")],
+    ids=["storage", "serving"])
+def test_ring_hosting_apps_default_to_the_card(module, cls):
+    """The apps that host rings by default resolve their device to the
+    card unless asked otherwise, and raise without one."""
+    import importlib
+
+    app_cls = getattr(importlib.import_module(module), cls)
+    app = app_cls([], device="cpu")
+    assert int(app.config.get("usrbio")) == 1 and app.device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app_cls([])

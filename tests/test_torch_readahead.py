@@ -97,10 +97,14 @@ def prefetch_threads() -> list:
     return [t for t in threading.enumerate() if t.name.startswith("prefetch-")]
 
 
-def _no_prefetch_worker_left() -> bool:
-    for t in prefetch_threads():
+def _no_prefetch_worker_left(before=()) -> bool:
+    """No prefetch worker started since ``before`` is alive after a bounded
+    join (a prefetcher another test in this process never closed keeps
+    its own)."""
+    mine = [t for t in prefetch_threads() if t not in before]
+    for t in mine:
         t.join(10)
-    return not prefetch_threads()
+    return not any(t.is_alive() for t in mine)
 
 
 # -- the prefetcher's contract ---------------------------------------------------
@@ -315,11 +319,12 @@ def test_degraded_readahead_returns_the_written_bytes(pkg, monkeypatch):
 
 def test_no_prefetch_worker_outlives_its_client(pkg, fab):
     inode = _mkfile(pkg, fab, "/td", b"t" * (8 * CHUNK))
+    before = set(prefetch_threads())
     fio = pkg.fio.FileIoClient(fab.storage_client(),
                                prefetch=pkg.pf.PrefetchConfig(
                                    window_bytes=2 * CHUNK, min_run=1))
     for off in range(0, 8 * CHUNK, CHUNK):
         assert fio.read(inode, off, CHUNK) == b"t" * CHUNK
-    assert prefetch_threads()
+    assert set(prefetch_threads()) - before
     fio.close()
-    assert _no_prefetch_worker_left()
+    assert _no_prefetch_worker_left(before)

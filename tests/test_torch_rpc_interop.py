@@ -13,7 +13,11 @@ pairings (JAX clients on JAX servers, port on JAX, JAX on port, port on
 port) must give the same replies, byte for byte as serde encodes them,
 with the wall-clock fields (inode times), the session uuids and the
 servers' ports zeroed,
-and the port's servers must store the bytes the JAX servers store."""
+and the port's servers must store the bytes the JAX servers store. The
+four pairings run again over USRBIO shm rings (``TPU3FS_USRBIO=1``, the
+storage apps with ``usrbio=1``): each shows a ring established in its
+client's messenger, so it cannot pass over sockets, and its replies and
+stored bytes equal the socket reference."""
 
 import dataclasses
 import importlib
@@ -63,9 +67,10 @@ def _blank(value):
     return dataclasses.replace(value, **kw)
 
 
-def _drive(client_pkg: str, cluster) -> list:
+def _drive(client_pkg: str, cluster, rings=None) -> list:
     """One package's clients against ``cluster`` -> serde bytes of every
-    reply, in order."""
+    reply, in order. ``rings`` collects the node ids the storage client's
+    messenger holds a ring to."""
     mod = lambda name: importlib.import_module(f"{client_pkg}.{name}")  # noqa: E731
     net, svc, serde = mod("rpc.net"), mod("rpc.services"), mod("rpc.serde")
     craq, stypes = mod("storage.craq"), mod("storage.types")
@@ -114,6 +119,9 @@ def _drive(client_pkg: str, cluster) -> list:
         for c, _ in stripes:
             rec(sc.read_stripe(EC_CHAIN, c, chunk_size=CS))
         rec(sc.read_stripe(EC_CHAIN, cid(3, 1), 900, 2000, chunk_size=CS))
+        if rings is not None:
+            rings.extend(sorted(n for n, r in messenger._usrbio_rings.items()
+                                if r is not None))
     finally:
         sc.close()
 
@@ -140,16 +148,19 @@ def _stored(cluster) -> dict:
         for app in cluster.nodes.values() for t in app.service.targets()}
 
 
-def _pairing(server_pkg: str, client_pkg: str, monkeypatch):
-    monkeypatch.setenv("TPU3FS_USRBIO", "0")
+def _pairing(server_pkg: str, client_pkg: str, monkeypatch, rings=None):
+    """One pairing's replies and stored bytes; over sockets, or over rings
+    when ``rings`` is a list (which collects the ringed node ids)."""
+    monkeypatch.setenv("TPU3FS_USRBIO", "0" if rings is None else "1")
     kw = {"device": "cpu"} if server_pkg == "tpu3fs_torch" else {}
     before = threading.enumerate()
     cluster = None
     try:
         with deterministic(server_pkg, seed=1), \
                 deterministic(client_pkg, seed=1):
-            cluster = _InteropCluster(server_pkg, SHAPE, app_kw=kw)
-            replies = _drive(client_pkg, cluster)
+            cluster = _InteropCluster(server_pkg, SHAPE, app_kw=kw,
+                                      usrbio=rings is not None)
+            replies = _drive(client_pkg, cluster, rings)
             stored = _stored(cluster)
     finally:
         if cluster is not None:
@@ -178,6 +189,25 @@ def test_clients_and_servers_interoperate(server_pkg, client_pkg,
                                           reference, monkeypatch):
     want_replies, want_stored = reference
     replies, stored = _pairing(server_pkg, client_pkg, monkeypatch)
+    assert len(replies) == len(want_replies)
+    for i, (got, want) in enumerate(zip(replies, want_replies)):
+        assert got == want, f"reply {i}"
+    assert stored == want_stored
+
+
+@pytest.mark.parametrize("server_pkg,client_pkg", [
+    ("tpu3fs", "tpu3fs"),
+    ("tpu3fs", "tpu3fs_torch"),
+    ("tpu3fs_torch", "tpu3fs"),
+    ("tpu3fs_torch", "tpu3fs_torch"),
+], ids=["jax-on-jax", "port-clients-on-jax-servers",
+        "jax-clients-on-port-servers", "port-on-port"])
+def test_clients_and_servers_interoperate_over_rings(server_pkg, client_pkg,
+                                                     reference, monkeypatch):
+    want_replies, want_stored = reference
+    rings = []
+    replies, stored = _pairing(server_pkg, client_pkg, monkeypatch, rings)
+    assert rings, "no ring was established: the pairing rode sockets"
     assert len(replies) == len(want_replies)
     for i, (got, want) in enumerate(zip(replies, want_replies)):
         assert got == want, f"reply {i}"

@@ -2,7 +2,9 @@
 the CPU (``device="cpu"``, the kernels' plain versions).
 
 Each package's ``ServingPeerClient(usrbio=False)`` drives the other's
-``bind_serving_service`` over loopback (``peerRead``, ``fillClaim``,
+``bind_serving_service`` over loopback, and ``ServingPeerClient(usrbio=
+True)`` the other's host over a shm ring (an oversized reply falling back
+to sockets as the JAX client's does) (``peerRead``, ``fillClaim``,
 ``fillRelease``, ``servingStats`` and ``servingLoad``), to replies equal
 to the JAX package's on its own (a load leg's wall-clock fields zeroed).
 ``python -m tpu3fs_torch.bin.serving_main --device cpu`` joins an
@@ -159,14 +161,102 @@ def test_peer_client_against_the_other_packages_host(client, server):
 
 
 def test_peer_client_rings_raise():
+    """The peer client rides rings by default (64 entries, an 8 MiB iov),
+    as in the JAX package, and through the stub factory; usrbio=False
+    forces sockets. Asking for rings raises nothing."""
     from tpu3fs_torch.client.stubs import StubFactory
     from tpu3fs_torch.serving.service import ServingPeerClient
 
-    with pytest.raises(NotImplementedError, match="M6a-3"):
-        ServingPeerClient(object(), usrbio=True)
-    with pytest.raises(NotImplementedError, match="M6a-3"):
-        StubFactory().serving_peer_client(usrbio=True)
-    assert StubFactory().serving_peer_client() is not None  # sockets
+    peers = ServingPeerClient(object())
+    assert peers._usrbio and (peers._entries, peers._iov_bytes) == (
+        64, 8 << 20)
+    stubs = StubFactory()
+    try:
+        assert stubs.serving_peer_client()._usrbio
+        assert stubs.serving_peer_client(usrbio=True)._usrbio
+        assert not stubs.serving_peer_client(usrbio=False)._usrbio
+    finally:
+        stubs.close()
+
+
+class RingServingServer(ServingServer):
+    """A ``ServingServer`` that also hosts its package's USRBIO rings."""
+
+    def __init__(self, pkg: str, node_id: int = 2):
+        super().__init__(pkg, node_id)
+        try:
+            usrbio = mod(pkg, "usrbio.server")
+            self.usrbio = usrbio.UsrbioRpcHost(self.server)
+            usrbio.bind_usrbio_service(self.server, self.usrbio)
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self):
+        host = getattr(self, "usrbio", None)
+        if host is not None:
+            host.stop()
+        super().stop()
+
+
+def _ring_reads(client_pkg: str, srv: ServingServer, *, iov_bytes: int):
+    """peerRead of small and large entries through a ring peer client ->
+    (serde bytes of the replies, the ring client if one was built,
+    transport counts where the client keeps them)."""
+    service = mod(client_pkg, "serving.service")
+    serde = mod(client_pkg, "rpc.serde")
+    rpc = mod(client_pkg, "rpc.net").RpcClient()
+    peers = service.ServingPeerClient(rpc, usrbio=True, entries=8,
+                                      iov_bytes=iov_bytes)
+    ep = mod(client_pkg, "mgmtd.types").ServingEndpoint(
+        node_id=srv.node_id, host="127.0.0.1", port=srv.server.port)
+    rng = np.random.default_rng(14)
+    out = []
+    try:
+        for i in range(3):
+            srv.fleet.put(f"big/{i}", rng.bytes(40_000), write_through=True)
+        out.append(peers.peer_read(ep, ["big/0"], est_bytes=40_000))
+        out.append(peers.peer_read(ep, ["big/0", "big/1", "big/2", "none"],
+                                   est_bytes=120_000))
+        srv.fleet.tier.clear()
+        out.append(peers.peer_read(ep, ["big/1"], serve_through=True,
+                                   est_bytes=40_000))
+        ring = peers._rings.get(srv.node_id)
+        calls = dict(getattr(peers, "transport_calls", {}))
+    finally:
+        peers.close()
+        rpc.close()
+    return [serde.serialize(r) for r in out], ring, calls
+
+
+@pytest.mark.parametrize("client,server", [("tpu3fs", "tpu3fs_torch"),
+                                           ("tpu3fs_torch", "tpu3fs"),
+                                           ("tpu3fs_torch", "tpu3fs_torch")],
+                         ids=["jax-client-port-host", "port-client-jax-host",
+                              "port-client-port-host"])
+@pytest.mark.parametrize("iov_bytes", [1 << 20, 128 << 10],
+                         ids=["fits", "oversized-reply-falls-back"])
+def test_peer_read_over_a_ring(client, server, iov_bytes):
+    """peerRead over a shm ring, either package's client against either
+    package's host, gives the replies the JAX package gives over its own
+    ring. With a 128 KiB iov the reply estimate is clamped to half the
+    arena, the 120 KB reply overflows its region and that call falls back
+    to sockets, as the JAX client does, with the same replies."""
+    runs = {}
+    for key, (c, s) in (("ref", ("tpu3fs", "tpu3fs")),
+                        ("got", (client, server))):
+        srv = RingServingServer(s)
+        try:
+            runs[key] = _ring_reads(c, srv, iov_bytes=iov_bytes)
+        finally:
+            srv.stop()
+    (want, ref_ring, _), (got, ring, calls) = runs["ref"], runs["got"]
+    assert got == want
+    assert ring is not None and ref_ring is not None, "no ring was built"
+    if calls:  # the port's client counts each transport a call tried
+        socket = 1 if iov_bytes < (1 << 20) else 0
+        assert calls == {("ring", 2): 3, **(
+            {("socket", 2): socket} if socket else {})}
 
 
 def _free_port() -> int:
@@ -270,12 +360,16 @@ def test_serving_process_registers_answers_and_stops(tmp_path):
 
 
 def test_serving_main_rings_raise():
+    """serving_main hosts rings and rides them to its peers by default,
+    as in the JAX package; each option turns off with 0."""
     from tpu3fs_torch.bin.serving_main import ServingApp
 
-    for flag in ("--config.usrbio=1", "--config.peer_usrbio=1"):
-        with pytest.raises(NotImplementedError, match="M6a-3"):
-            ServingApp([flag], device="cpu")
     app = ServingApp([], device="cpu")
+    assert (app.config.get("usrbio"), app.config.get("peer_usrbio")) == (1, 1)
+    assert (app.config.get("peer_ring_entries"),
+            app.config.get("peer_iov_bytes")) == (64, 8 << 20)
+    app = ServingApp(["--config.usrbio=0", "--config.peer_usrbio=0"],
+                     device="cpu")
     assert (app.config.get("usrbio"), app.config.get("peer_usrbio")) == (0, 0)
 
 

@@ -384,15 +384,14 @@ def test_host_load_legs(pkg, fab, op, batch):
 # -- the port's socket half ------------------------------------------------------
 def test_port_socket_halves_work():
     """The port's ``bind_serving_service`` and ``ServingPeerClient`` (over
-    sockets; the shm rings are ROADMAP M6a-3 and raise) carry a peer fill
-    between two fleet members over loopback."""
+    sockets with ``usrbio=False``; rings are its default, as in the JAX
+    package) carry a peer fill between two fleet members over loopback."""
     from tpu3fs_torch.client.hedging import HedgeController
     from tpu3fs_torch.rpc.net import RpcClient, RpcServer
     from tpu3fs_torch.serving import ServingPeerClient, bind_serving_service
 
     pkg = _pkg("tpu3fs_torch")
-    with pytest.raises(NotImplementedError, match="M6a-3"):
-        ServingPeerClient(object(), usrbio=True)
+    assert ServingPeerClient(object())._usrbio
     fab = pkg.fabric.Fabric(pkg.fabric.SystemSetupConfig(
         num_storage_nodes=2, num_chains=4, num_replicas=2, chunk_size=4096),
         device="cpu")
@@ -407,7 +406,7 @@ def test_port_socket_halves_work():
         server.start()
         ep = fleets[2].directory._routing().serving[1]
         ep.host, ep.port = "127.0.0.1", server.port
-        peers = ServingPeerClient(rpc)
+        peers = ServingPeerClient(rpc, usrbio=False)
         fleets[2].peers = peers
         fleets[1].put("blk/a", b"\x5a" * 3000)
         assert fleets[2].get("blk/a") == b"\x5a" * 3000

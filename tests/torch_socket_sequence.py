@@ -6,7 +6,8 @@ checks). This module imports neither package statically: ``AppCluster``
 takes the package's name and loads its binaries with ``importlib``.
 
 The cluster is built as ``tests/test_app.py`` builds it (mgmtd, storage
-apps with ``engine=mem`` and ``usrbio=0``, a meta app; targets, chains and
+apps with ``engine=mem`` and ``usrbio=0``, or ``usrbio=1`` with
+``AppCluster(..., usrbio=True)``, a meta app; targets, chains and
 a chain table uploaded through ``MgmtdAdminRpcClient``), with every
 background loop parked (hour-long intervals): the sequence drives the
 heartbeats, mgmtd's ticks, target scans and resync rounds itself, on a
@@ -96,7 +97,10 @@ class AppCluster:
     (the port's take ``device``); ``client_kw`` to every storage client.
     A failed node's app is stopped (its server closes); a restarted node
     is a new app with empty targets, as a replaced disk. ``close`` stops
-    every app and waits for each, with a bound.
+    every app and waits for each, with a bound. With ``usrbio`` the storage
+    apps host USRBIO rings (the clients ride them unless
+    ``TPU3FS_USRBIO=0``); ``close`` then also closes the rings every
+    messenger of the cluster opened.
 
     Storage clients read without hedging: a hedged read runs on the
     client package's process-wide runner pool, whose idle threads would
@@ -104,8 +108,10 @@ class AppCluster:
 
     MGMTD_ID, META_ID, FIRST_STORAGE = 1, 201, 101
 
-    def __init__(self, pkg: str, shape: dict, *, app_kw=None, client_kw=None):
+    def __init__(self, pkg: str, shape: dict, *, app_kw=None, client_kw=None,
+                 usrbio: bool = False):
         self.pkg = pkg
+        self.usrbio = usrbio
         self.shape = dict(shape)
         self.cfg = SimpleNamespace(chunk_size=shape["chunk_size"])
         self._app_kw = dict(app_kw or {})
@@ -124,6 +130,7 @@ class AppCluster:
         self.apps = []
         self.nodes = {}
         self._clients = []
+        self.messengers = []   # every messenger the cluster built
         try:
             self._boot()
         except BaseException:
@@ -194,7 +201,7 @@ class AppCluster:
     def _start_storage(self, node_id: int):
         app = self._bin.storage.StorageApp(
             self._two_phase_argv(node_id)
-            + ["--config.engine=mem", "--config.usrbio=0",
+            + ["--config.engine=mem", f"--config.usrbio={int(self.usrbio)}",
                f"--config.target_scan_interval_s={PARKED}",
                f"--config.resync_interval_s={PARKED}",
                f"--config.check_interval_s={PARKED}",
@@ -210,10 +217,14 @@ class AppCluster:
     def routing(self):
         return self.mgmtd_app.mgmtd.get_routing_info()
 
+    def messenger(self):
+        m = self._svc.RpcMessenger(self.admin.refresh_routing)
+        self.messengers.append(m)
+        return m
+
     def storage_client(self, client_id: str = "seq"):
         sc = self._sc.StorageClient(
-            client_id, self.admin.refresh_routing,
-            self._svc.RpcMessenger(self.admin.refresh_routing),
+            client_id, self.admin.refresh_routing, self.messenger(),
             retry=self._sc.RetryOptions(hedge_reads=False),
             **self._client_kw)
         self._clients.append(sc)
@@ -257,7 +268,7 @@ class AppCluster:
             for app in self.nodes.values():
                 if app.stopped:
                     continue
-                messenger = self._svc.RpcMessenger(self.admin.refresh_routing)
+                messenger = self.messenger()
                 moved += self._resync.ResyncWorker(
                     app.service, messenger).run_once()
                 moved += self._ec_resync.EcResyncWorker(
@@ -284,6 +295,14 @@ class AppCluster:
                 # the JAX package's storage app leaves its update workers
                 # (the port's joins them on stop)
                 service.stop_workers()
+            # the storage services' forwarding messengers open rings to
+            # their peers (the JAX package's app leaves them to exit)
+            close_rings = getattr(getattr(service, "_messenger", None),
+                                  "close_rings", None)
+            if close_rings is not None:
+                close_rings()
+        for m in self.messengers:
+            m.close_rings()
 
 
 def join_app(app, timeout: float = 10.0) -> bool:

@@ -12,7 +12,9 @@ Two-phase boot like every service binary: launcher fetches the CLIENT
 config template from mgmtd and registers the node; beforeStart registers
 this node's serving endpoint in the mgmtd serving directory (a TTL
 lease, renewed at ttl/3 like a heartbeat) so peers discover it through
-RoutingInfo.serving exactly like chain tables.
+RoutingInfo.serving exactly like chain tables. Co-located peers ride
+USRBIO shm rings (the binary hosts the Usrbio control service; peerRead
+is ring-dispatchable, usrbio/transport.py RING_METHODS).
 
     python -m tpu3fs_torch.bin.serving_main --node-id 61 --mgmtd HOST:PORT \
         --device cuda [--port 0] [--straggle-ms 0] [--tenant t0] \
@@ -23,8 +25,7 @@ a keyword ``device`` (else ``--device``, default ``cuda``) and hands it to
 its ``StorageClient``: the file client's stripe encode, CRCs and degraded
 decodes of a write-through put or a storage fill run there. The USRBIO
 shm rings (the binary's own ring server, ``usrbio``, and rings to peers,
-``peer_usrbio``) are ROADMAP M6a-3: both default to 0 here (1 in the JAX
-package) and 1 raises ``NotImplementedError``.
+``peer_usrbio``) default to 1, as in the JAX package; 0 turns each off.
 """
 
 from __future__ import annotations
@@ -64,9 +65,10 @@ class ServingAppConfig(Config):
     claim_polls = ConfigItem(3, hot=True)
     singleflight_timeout_s = ConfigItem(30.0, hot=True)
     peer_est_bytes = ConfigItem(1 << 20)
-    # peer transport: shm rings to co-located peers (ROADMAP M6a-3; 1
-    # raises)
-    peer_usrbio = ConfigItem(0)
+    # peer transport: prefer shm rings to co-located peers
+    peer_usrbio = ConfigItem(1)
+    peer_ring_entries = ConfigItem(64)
+    peer_iov_bytes = ConfigItem(8 << 20)
     # serving-directory lease (mgmtd _prune_serving expires silent nodes)
     serving_ttl_s = ConfigItem(30.0, hot=True)
     # QoS / tenants / faults / tracing / flight: the standard config
@@ -78,9 +80,10 @@ class ServingAppConfig(Config):
     flight = FlightConfig
     collector = ConfigItem("", hot=True)
     monitor_push_period_s = ConfigItem(5.0, hot=True)
-    # USRBIO hosting (this binary's OWN ring server, for peers' rings;
-    # ROADMAP M6a-3, 1 raises)
-    usrbio = ConfigItem(0)
+    # USRBIO hosting (this binary's OWN ring server, for peers' rings)
+    usrbio = ConfigItem(1)
+    usrbio_reap_interval_s = ConfigItem(60.0, hot=True)
+    usrbio_iov_max_age_s = ConfigItem(3600.0, hot=True)
 
 
 class ServingApp(TwoPhaseApplication):
@@ -88,12 +91,8 @@ class ServingApp(TwoPhaseApplication):
 
     def __init__(self, argv: Optional[List[str]] = None, *, device=None):
         super().__init__(argv, device=device)
-        for key in ("usrbio", "peer_usrbio"):
-            if int(self.config.get(key)):
-                raise NotImplementedError(
-                    f"serving_main {key}=1: the USRBIO shm rings are not "
-                    "ported (ROADMAP M6a-3); the port's serving processes "
-                    "speak sockets only")
+        self._usrbio_host = None
+        self._messenger = None
         self.fleet = None
         self.host = None
         self._fio = None
@@ -145,7 +144,8 @@ class ServingApp(TwoPhaseApplication):
 
         node_id = self.info.node_id
         routing = self.mgmtd_client.refresh_routing
-        messenger = RpcMessenger(lambda: self.mgmtd_client.routing())
+        messenger = self._messenger = RpcMessenger(
+            lambda: self.mgmtd_client.routing())
         meta = self._meta_client(self._meta_addrs())
         # storage clients need UNIQUE wire ids (cli.py RpcFabricView: the
         # exactly-once channel table is keyed by client id)
@@ -161,7 +161,12 @@ class ServingApp(TwoPhaseApplication):
             touch_coalesce_s=float(self.config.get("touch_coalesce_s")),
             tenant=self.flag("tenant"),
         )
-        peers = ServingPeerClient(RpcClient(), usrbio=False)
+        peers = ServingPeerClient(
+            RpcClient(),
+            usrbio=bool(self.config.get("peer_usrbio")),
+            entries=int(self.config.get("peer_ring_entries")),
+            iov_bytes=int(self.config.get("peer_iov_bytes")),
+        )
         # the directory reads routing on EVERY pick: hand it the cached
         # snapshot (kept fresh by the app's routing-poll loop), not the
         # per-call mgmtd RPC — membership is eventually consistent anyway
@@ -185,6 +190,14 @@ class ServingApp(TwoPhaseApplication):
             straggle_ms=float(self.flag("straggle_ms", "0") or 0),
         )
         bind_serving_service(server, self.host)
+        if self.config.get("usrbio"):
+            from tpu3fs_torch.usrbio.server import (
+                UsrbioRpcHost,
+                bind_usrbio_service,
+            )
+
+            self._usrbio_host = UsrbioRpcHost(server)
+            bind_usrbio_service(server, self._usrbio_host)
 
     # -- serving-directory lease ---------------------------------------------
     def _serving_register_once(self) -> bool:
@@ -205,15 +218,34 @@ class ServingApp(TwoPhaseApplication):
             self._serving_register_once()
 
     def before_start(self) -> None:
-        # self.info.port is final here (init_server bound the socket)
-        self._serving_register_once()
         self.spawn(self._serving_renew_loop, "serving-renew")
+        if self._usrbio_host is not None:
+            self.spawn(self._usrbio_reap_loop, "usrbio-reap")
+
+    def start_server(self) -> None:
+        """Listen, then enter the serving directory: a peer that reads the
+        entry must find the server accepting (the JAX package registers
+        in ``before_start``, before the server listens, and a peer quick
+        enough is refused)."""
+        super().start_server()
+        self._serving_register_once()
+
+    def _usrbio_reap_loop(self) -> None:
+        while not self._stop.wait(
+                self.config.get("usrbio_reap_interval_s")):
+            try:
+                self._usrbio_host.reap_pass(
+                    iov_max_age_s=self.config.get("usrbio_iov_max_age_s"))
+            except Exception:
+                pass
 
     def after_stop(self) -> None:
         try:
             self.mgmtd_client.serving_unregister(self.info.node_id)
         except Exception:
             pass  # TTL expiry prunes the directory entry
+        if self._usrbio_host is not None:
+            self._usrbio_host.stop()
         if self.fleet is not None:
             try:
                 self.fleet.close()
@@ -223,6 +255,8 @@ class ServingApp(TwoPhaseApplication):
             # the file client's fan-out pool holds worker threads
             self._fio.close()
             self._fio.storage.close()
+        if self._messenger is not None:
+            self._messenger.close_rings()
 
 
 def main(argv: Optional[List[str]] = None) -> int:

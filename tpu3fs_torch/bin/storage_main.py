@@ -11,9 +11,12 @@ package:
 - ``engine``: ``mem`` only; ``auto`` means ``mem``. ``native`` (the C++
   engine and its read fast path) is ROADMAP M6a-3 and raises
   ``NotImplementedError``.
-- ``usrbio`` defaults to 0; 1 (hosting shm rings) is ROADMAP M6a-3 and
-  raises ``NotImplementedError``.
-- a stop also joins the per-target update workers.
+- a stop also joins the per-target update workers and closes the shm
+  rings its own messengers opened to peer nodes.
+
+``usrbio`` (default 1, as in the JAX package) hosts the USRBIO rings:
+co-located clients register shm rings through the Usrbio control
+service and their data-plane RPCs ride them; 0 serves sockets only.
 
 Run it as ``python -m tpu3fs_torch.bin.storage_main --node-id N --mgmtd
 HOST:PORT``.
@@ -88,9 +91,12 @@ class StorageAppConfig(Config):
     flight = FlightConfig
     collector = ConfigItem("", hot=True)          # host:port; "" = off
     monitor_push_period_s = ConfigItem(5.0, hot=True)
-    # USRBIO shared-memory data plane: not ported (ROADMAP M6a-3), so
-    # hosting is off and 1 raises
-    usrbio = ConfigItem(0)
+    # USRBIO shared-memory data plane (tpu3fs_torch/usrbio): co-located
+    # clients register shm rings through the Usrbio control service and
+    # the data path rides them instead of sockets. 0 disables hosting.
+    usrbio = ConfigItem(1)
+    usrbio_reap_interval_s = ConfigItem(60.0, hot=True)
+    usrbio_iov_max_age_s = ConfigItem(3600.0, hot=True)
     # elasticity: close + trash-route local targets whose routing
     # assignment was taken away by a migration cutover (docs/placement.md)
     retire_targets = ConfigItem(1, hot=True)
@@ -103,11 +109,13 @@ class StorageApp(TwoPhaseApplication):
         super().__init__(argv, device=device)
         self.service: Optional[StorageService] = None
         self._trace = None
+        self._usrbio_host = None
+        self._messengers: List[RpcMessenger] = []
         self._check_ported()
 
     def _check_ported(self) -> None:
-        """The engine and USRBIO options the port serves (checked at
-        construction and again after mgmtd's config template lands)."""
+        """The engine options the port serves (checked at construction
+        and again after mgmtd's config template lands)."""
         engine = self.config.get("engine")
         if engine == "native":
             raise NotImplementedError(
@@ -115,10 +123,6 @@ class StorageApp(TwoPhaseApplication):
                 ".py) is not ported (ROADMAP M6a-3); use engine=mem")
         if engine not in ("auto", "mem"):
             raise ValueError(f"unknown chunk engine kind: {engine}")
-        if self.config.get("usrbio"):
-            raise NotImplementedError(
-                "usrbio=1 (hosting USRBIO shm rings, usrbio/server.py) is "
-                "not ported (ROADMAP M6a-3); leave usrbio=0")
 
     def default_config(self) -> Config:
         return StorageAppConfig()
@@ -133,7 +137,7 @@ class StorageApp(TwoPhaseApplication):
 
     def build_services(self, server: RpcServer) -> None:
         self._check_ported()
-        messenger = RpcMessenger(lambda: self.mgmtd_client.routing())
+        messenger = self._messenger()
         self.service = StorageService(
             self.info.node_id, lambda: self.mgmtd_client.routing(), messenger,
             device=self.device,
@@ -150,10 +154,32 @@ class StorageApp(TwoPhaseApplication):
             self._trace = StructuredTraceLog("storage-event", trace_dir)
             self.service.set_trace_log(self._trace)
         bind_storage_service(server, self.service)
+        # USRBIO shm data plane: co-located clients register rings via
+        # the control service; their RPCs then dispatch through the SAME
+        # admission entry as socket frames (usrbio/server.py)
+        if self.config.get("usrbio"):
+            from tpu3fs_torch.usrbio.server import (
+                UsrbioRpcHost,
+                bind_usrbio_service,
+            )
+
+            self._usrbio_host = UsrbioRpcHost(server)
+            bind_usrbio_service(server, self._usrbio_host)
+
+    def _messenger(self) -> RpcMessenger:
+        """A messenger to the other storage nodes; its rings are closed
+        at stop."""
+        messenger = RpcMessenger(lambda: self.mgmtd_client.routing())
+        self._messengers.append(messenger)
+        return messenger
 
     def after_stop(self) -> None:
+        if self._usrbio_host is not None:
+            self._usrbio_host.stop()
         if self.service is not None:
             self.service.stop_workers()
+        for messenger in self._messengers:
+            messenger.close_rings()
         if self._trace is not None:
             # the writer buffers flush_rows rows; a restart must not lose
             # the tail of the trace
@@ -258,6 +284,17 @@ class StorageApp(TwoPhaseApplication):
         self.spawn(self._punch_hole_loop, "punch-hole")
         # always spawned so dump_interval_s can be hot-enabled from 0
         self.spawn(self._dump_loop, "dump-chunkmeta")
+        if self._usrbio_host is not None:
+            self.spawn(self._usrbio_reap_loop, "usrbio-reap")
+
+    def _usrbio_reap_loop(self) -> None:
+        while not self._stop.wait(
+                self.config.get("usrbio_reap_interval_s")):
+            try:
+                self._usrbio_host.reap_pass(
+                    iov_max_age_s=self.config.get("usrbio_iov_max_age_s"))
+            except Exception:
+                pass
 
     def _target_scan_loop(self) -> None:
         while not self._stop.wait(self.config.get("target_scan_interval_s")):
@@ -273,8 +310,7 @@ class StorageApp(TwoPhaseApplication):
         while not self._stop.wait(self.config.get("resync_interval_s")):
             try:
                 if worker is None:
-                    messenger = RpcMessenger(
-                        lambda: self.mgmtd_client.routing())
+                    messenger = self._messenger()
                     worker = ResyncWorker(self.service, messenger)
                     # EC chains rebuild + heal (healthy-chain roll-forward
                     # of interrupted two-phase commits) on the same cadence

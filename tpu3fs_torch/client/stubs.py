@@ -127,8 +127,8 @@ class StubFactory:
 
     def serving_peer_client(self, **kw):
         """Serving peerRead/fillClaim stub (serving/service.py) — shares the
-        factory's pooled RPC client like every other stub. Sockets only:
-        ``usrbio=True`` (shm rings, ROADMAP M6a-3) raises."""
+        factory's pooled RPC client like every other stub; pass
+        ``usrbio=False`` to force sockets for non-co-located use."""
         if self.transport == "inmem":
             raise FsError(Status(Code.INVALID_ARG,
                                  "inmem mode has no serving peers"))

@@ -9,7 +9,7 @@ storage (docs/serving.md). The package splits along the protocol:
   fill-intent claim table;
 - ``service``   — the Serving RPC service (peerRead/fillClaim/
   fillRelease/servingStats/servingLoad), its per-process host, and the
-  socket peer client (its shm rings are ROADMAP M6a-3 and raise);
+  peer client (shm rings to co-located peers, sockets otherwise);
 - ``fleet``     — ``FleetKVCache``: the TieredKVCache subclass whose
   miss path runs single-flight -> hedged peer fill -> claimed storage
   fill, with shared-block refcounts and tenant-aware peer admission.

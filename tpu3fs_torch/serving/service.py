@@ -1,12 +1,11 @@
 """The Serving RPC surface: each serving process's host + peer client.
 
 Service id 7 ("Serving") rides the same TCP transport as every other
-service. In the JAX package ``peerRead`` — the only data-plane method —
-additionally rides the USRBIO shm rings when requester and peer share a
-host; the port's ``ServingPeerClient`` speaks sockets only (the rings are
-ROADMAP M6a-3): ``usrbio=True`` raises ``NotImplementedError`` and never
-falls back to a socket, so the port's default is ``usrbio=False``. In one
-process a caller may also hand ``FleetKVCache`` any object with
+service. ``peerRead`` — the only data-plane method — additionally rides
+the USRBIO shm rings when requester and peer share a host
+(``ServingPeerClient(usrbio=True)``, the default, as in the JAX package);
+the client counts its peerRead calls by transport (``transport_calls``).
+In one process a caller may also hand ``FleetKVCache`` any object with
 ``peer_read``/``fill_claim``/``fill_release`` that dispatches into the
 peers' ``ServingHost``s.
 
@@ -29,6 +28,7 @@ the bench/driver workload surface (threads inside the serving process).
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from dataclasses import dataclass, field
@@ -338,8 +338,9 @@ class ServingHost:
 
 
 def bind_serving_service(server, host: ServingHost):
-    """Bind the Serving service onto an RpcServer (the JAX package also
-    binds Usrbio for co-located peers' rings: ROADMAP M6a-3)."""
+    """Bind the Serving service onto an RpcServer. The process should
+    also bind Usrbio (usrbio/server.py) so co-located peers can drive
+    peerRead over shm rings (RING_METHODS maps (7, 1))."""
     from tpu3fs_torch.rpc.net import ServiceDef
 
     s = ServiceDef(SERVING_SERVICE_ID, "Serving")
@@ -357,17 +358,30 @@ def bind_serving_service(server, host: ServingHost):
 # -- peer client -------------------------------------------------------------
 
 class ServingPeerClient:
-    """Client half of the peer-fill protocol over sockets. The JAX
-    package's client also rides shm rings to co-located peers; those are
-    ROADMAP M6a-3, so ``usrbio=True`` raises rather than fall back to a
-    socket."""
+    """Client half of the peer-fill protocol: sockets everywhere, shm
+    rings when requester and peer share a host (the storage messenger's
+    handshake and ring rules, ``usrbio/transport.py:RingTable``, keyed by
+    peer node id, with transport errors falling back to the socket path
+    and fatal ones dropping the ring)."""
 
-    def __init__(self, rpc_client, *, usrbio: bool = False):
-        if usrbio:
-            raise NotImplementedError(
-                "ServingPeerClient(usrbio=True): the USRBIO shm rings are "
-                "not ported (ROADMAP M6a-3); pass usrbio=False for sockets")
+    def __init__(self, rpc_client, *, usrbio: bool = True,
+                 entries: int = 64, iov_bytes: int = 8 << 20):
+        from tpu3fs_torch.usrbio.transport import RingTable
+
         self._client = rpc_client
+        self._usrbio = usrbio
+        self._entries = int(entries)
+        self._iov_bytes = int(iov_bytes)
+        self._table = RingTable(rpc_client, entries=self._entries,
+                                iov_bytes=self._iov_bytes)
+        self._mu = threading.Lock()
+        #: (transport, node id) -> peerRead calls issued over "ring" or
+        #: "socket": a call counts on each transport it was tried on
+        self.transport_calls: collections.Counter = collections.Counter()
+
+    def _count(self, transport: str, node_id: int) -> None:
+        with self._mu:
+            self.transport_calls[(transport, node_id)] += 1
 
     @staticmethod
     def _addr(ep) -> tuple:
@@ -376,18 +390,50 @@ class ServingPeerClient:
                                  f"serving endpoint {ep!r} has no address"))
         return ep.host, ep.port
 
+    # -- rings ---------------------------------------------------------------
+    @property
+    def _rings(self) -> Dict[int, object]:
+        return self._table.rings
+
+    def _ring_for(self, ep):
+        """The peer's RingClient, or None (sockets)."""
+        if not self._usrbio:
+            return None
+        return self._table.get(
+            ep.node_id, lambda: (ep.host, ep.port)
+            if getattr(ep, "host", "") else None)
+
     def close(self) -> None:
-        """Nothing to release: the socket client has no rings."""
+        self._table.close()
 
     # -- calls ---------------------------------------------------------------
     def peer_read(self, ep, keys: List[str], *, serve_through: bool = True,
                   est_bytes: int = 1 << 20,
                   deadline_s: Optional[float] = None) -> PeerReadRsp:
-        """``deadline_s`` bounds the attempt and surfaces expiry as
-        RPC_TIMEOUT: the caller (the fleet fill ladder) owns the
-        fallback-to-storage decision. ``est_bytes`` sizes a ring's reply
-        in the JAX package; sockets need no estimate."""
+        """``deadline_s`` bounds the attempt on EITHER transport and
+        surfaces expiry as RPC_TIMEOUT — which is deliberately NOT a ring
+        transport code, so a straggling peer neither tears the ring down
+        nor silently retries on sockets: the caller (the fleet fill
+        ladder) owns the fallback-to-storage decision."""
         req = PeerReadReq(keys=list(keys), serve_through=serve_through)
+        ring = self._ring_for(ep)
+        if ring is not None:
+            self._count("ring", ep.node_id)
+            try:
+                # clamp the reply estimate to half the ring arena: a
+                # batched read whose worst-case estimate outgrows the
+                # arena should still ride the ring (an underestimated
+                # reply surfaces as a transport error and falls back to
+                # sockets; a permanent downgrade would be silent)
+                est = min(int(est_bytes), self._iov_bytes // 2)
+                rsp, _segs = ring.call(SERVING_SERVICE_ID, 1, req,
+                                       PeerReadRsp,
+                                       rsp_data_est=est,
+                                       deadline_s=deadline_s)
+                return rsp
+            except FsError as e:
+                self._table.fallback(ep.node_id, ring, e)
+        self._count("socket", ep.node_id)
         return self._client.call(self._addr(ep), SERVING_SERVICE_ID, 1,
                                  req, PeerReadRsp, timeout_s=deadline_s)
 
