@@ -166,11 +166,16 @@ Phases, in order (any failure exits non-zero):
      twin encoded on the card (4 stripes a file against encode_np and
      crc32c_py), two files removed and collected by meta's GC, 64 chunks
      of 256 KiB on the CR chain; (b) the same services each as its own
-     process (python -m tpu3fs_torch.bin.<name>_main --device cuda),
-     the same requests with a SIGKILL as the failure and a new process
-     as the restart, each storage process shown on the card (nvidia-smi,
-     or its device file and the mapped kernel library where nvidia-smi
-     sees another pid namespace), then phase 16's records, epochs at 1,
+     process (python -m tpu3fs_torch.bin.<name>_main --device cuda; the
+     storage processes on the JAX package's default engine, auto: the C++
+     engine, each on its own data dir under _smoke_run, emptied before a
+     restart, a replaced disk), the same requests with a SIGKILL as the
+     failure and a new process as the restart, the storage processes
+     that launched a kernel (on the C++ engine only decodes and
+     chain-encode hops do) shown on the card (a CUDA context and the
+     mapped kernel library, read before a SIGKILL for a killed one;
+     nvidia-smi's count where it sees another pid namespace), then
+     phase 16's records, epochs at 1,
      2, 4, 4, 2, 1 workers and 1 MiB reads with readahead off and on,
      healthy and with a second process killed; every child stopped by
      SIGTERM within 10 s, exit codes and logs checked. Host ms and
@@ -197,14 +202,15 @@ Phases, in order (any failure exits non-zero):
      SIGKILLed with meta creates and stats on every partition going on
      and its restart catching up, and aggQuery/sloStatus on the
      collector. Every page on the card and a sample of stored shards
-     checked; the storage and serving processes shown on the card, the
-     kvd members and the collector off it; host ms and launches of each
+     checked; the storage and serving processes that launched a kernel
+     shown on the card, the kvd members and the collector off it; host ms and launches of each
      step, put, peer-fill and storage-fill GiB/s, the prefix-on-card ms
      and the failover's time to the first meta reply. Only the script's
      launches are counted. No ring segment or semaphore is left in
      /dev/shm after it;
  19. the USRBIO rings (rings; after phase 18, its launches under
-     "rings"): phase 17 (b)'s cluster as processes with the storage
+     "rings"): phase 17 (b)'s cluster as processes (the C++ engine on
+     disk, as in 17 (b) and 18) with the storage
      processes on usrbio=1 (their own messengers ride rings to each
      other) and a monitor_main they push their samples to; a ring client
      (TPU3FS_USRBIO=1) and a socket client (0) over the same processes,
@@ -221,16 +227,41 @@ Phases, in order (any failure exits non-zero):
      record files); the hf3fs_usrbio API
      (a UsrbioAgent in the script over each client, a UsrbioClient on
      it): a 256 MiB file (cut from 1 GiB: RING_API_MIB) written and read
-     in 1 MiB blocks at depth 32, then
+     in 1 MiB blocks at depth 32 in 2 turns on each client, then
      read with a second storage process killed, every block checked.
      Every data-plane call of the ring client rides a ring and every call
-     of the socket client a socket; the storage processes are shown on
+     of the socket client a socket; the storage processes that launched
+     a kernel are shown on
      the card; every child stops on SIGTERM within 10 s with no
      traceback; no tpu3fs-iov-, tpu3fs-ior-, handshake segment or named
      semaphore that the phase's processes mapped or named is left in
      /dev/shm (the SIGKILLed processes' leftovers are reaped first;
-     nothing else in the machine's /dev/shm is touched).
-Phases 7-14 and 16-19 are the main path: every kernel count is set to 0
+     nothing else in the machine's /dev/shm is touched);
+ 20. the native paths (native; after phase 19, its launches under
+     "native"): phase 17 (b)'s cluster with every service on --rpc
+     native (the C++ transport), the storage processes on engine=native
+     (the C++ engine, data dirs under _smoke_run) and usrbio=0, pushing
+     their fast-path, resync and rebuild counters to a monitor_main; a
+     StubFactory("native") client and a Python-transport one over the
+     same processes: usrbio_bench's 32 x 1 MiB on the CR chain in 2
+     rotated turns (medians, native/python ratios; every native turn's
+     window shows reads and head writes the C workers served); /a (48
+     RS(12,4) stripes) written and read, a storage process SIGKILLed,
+     /a read degraded (K1 decodes of 4 lost shards), 4 stripes and 8 CR
+     chunks written while it is down, a new process started on the
+     killed one's data dir as it was left (the punch-hole compaction
+     parked, so its WALs hold all it committed): the time until its
+     targets serve, the resync must move exactly the 16 shards and 8 CR
+     chunks written while it was down, and the new process must serve
+     every chunk committed before the kill as it was (its replay);
+     every file read back; every chunk each engine holds fetched by
+     target-addressed batch reads and its engine CRC held against
+     crc32c_many (K2) on the card; after the processes stop, where
+     io_uring is allowed, every target dir read through the io_uring and
+     the pread paths, chunk for chunk equal. Every target of every storage process (17
+     (b)-20) must be on the C++ engine (the processes' logs name each
+     target's engine), and the data dirs are gone after each phase.
+Phases 7-14 and 16-20 are the main path: every kernel count is set to 0
 just before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
@@ -241,7 +272,8 @@ and runs phase 12 alone, with its traced run; ``--ckpt`` builds them and
 runs phase 13 alone, with its traced run; ``--fetch`` builds them and
 runs phase 16 alone, with its traced run; ``--sockets`` builds them and
 runs phase 17 alone; ``--fleet`` builds them and runs phase 18 alone;
-``--rings`` builds them and runs phase 19 alone.
+``--rings`` builds them and runs phase 19 alone; ``--native`` builds them
+and runs phase 20 alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -478,13 +510,53 @@ def environment() -> str:
     return kind
 
 
+def host_line() -> str:
+    """Whether /dev/fuse exists and opens, g++'s version, and the
+    filesystem of the run dir, where the storage processes keep their
+    data dirs, with the read path a native engine takes there."""
+    from tpu3fs_torch import hostbuild
+    from tpu3fs_torch.storage.native_engine import FS_TYPES, fs_type, read_path
+
+    fuse = "/dev/fuse absent"
+    if os.path.exists("/dev/fuse"):
+        try:
+            os.close(os.open("/dev/fuse", os.O_RDWR))
+            fuse = "/dev/fuse present and openable"
+        except OSError as e:
+            fuse = f"/dev/fuse present, not openable ({e.strerror})"
+    try:
+        gxx = subprocess.run([hostbuild.compiler(), "--version"],
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    except (RuntimeError, OSError, IndexError) as e:
+        gxx = f"no g++ ({e})"
+    import tempfile
+
+    RUN_DIR.mkdir(exist_ok=True)
+    kinds = {}
+    for d in (RUN_DIR, tempfile.gettempdir(), "/"):
+        t = fs_type(str(d))
+        kinds[str(d)] = FS_TYPES.get(t, hex(t))
+    return (f"{fuse}; {gxx}; filesystems {kinds} (the run dir first), "
+            f"native engine read path {read_path(str(RUN_DIR))}")
+
+
 # -- phase 2 -----------------------------------------------------------------
 def build() -> None:
-    from tpu3fs_torch import kernels
+    from tpu3fs_torch import hostbuild, kernels
 
     t0 = phase("phase 2: build")
+    # g++ (the host libraries) beside nvcc (the kernels)
+    host = threading.Thread(target=lambda: [hostbuild.load(n) for n in
+                                            hostbuild.SOURCES])
+    host.start()
     kernels.library()
     log(f"kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
+    host.join()
+    for n in hostbuild.SOURCES:
+        require(n in hostbuild._loaded, f"the host library {n} did not load")
+    log(f"host libraries {[hostbuild.library_path(n).name for n in hostbuild.SOURCES]}"
+        f" built and loaded in {time.perf_counter() - t0:.2f} s")
     for line in kernels.build_log().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
@@ -3706,6 +3778,13 @@ SOCK_PARKED = "3600"                   # seconds: (a)'s loops never fire
 SOCK_WAIT_S = 300.0                    # the bound on any one wait
 SOCK_CHILD_STOP_S = 10.0               # SIGTERM -> exit, else killed
 SOCK_WARM_STRIPES = 8                  # (a)'s warm-up pass
+SOCK_MONITOR = 300                     # (b)'s monitor_collector
+SOCK_PUSH_S = 0.5                      # (b)'s storage sample push period
+# the storage processes' data dirs, on the checkout's disk (never
+# /dev/shm: the engine maps tmpfs and skips fsync there); git-ignored,
+# each cluster's removed at its end
+RUN_DIR = Path(__file__).resolve().parent / "_smoke_run"
+OPENED = re.compile(r"node (\d+) opened target (\d+) \(chain \d+, (\w+), ")
 
 
 def sock_wait(pred, what: str, timeout: float = SOCK_WAIT_S):
@@ -3901,17 +3980,32 @@ class SockProcesses:
     (heartbeats, mgmtd's ticks, target scans, resync and GC). Only
     mgmtd's port is chosen here (a socket bound to port 0, closed just
     before); every other address is read from mgmtd's routing. Logs go to
-    ``logdir``. Every child runs with ``env`` over this process's
-    environment: phase 17 pins sockets (``TPU3FS_USRBIO=0``, and its
-    storage processes take ``usrbio=0``), so its numbers stay comparable
-    with those of the socket-only port."""
+    ``logdir``, each child's xlog beside its output. Every child runs with
+    ``env`` over this process's environment: phase 17 pins sockets
+    (``TPU3FS_USRBIO=0``, and its storage processes take ``usrbio=0``),
+    so its numbers stay comparable with those of the socket-only port.
+    The storage processes run the JAX package's default engine (``auto``:
+    the C++ engine on disk), each on its own data dir under RUN_DIR;
+    ``close`` fails a storage process whose log shows a target on any
+    other engine, and removes the data dirs. Each storage process pushes
+    its samples to a ``monitor_main`` every ``push_s``: the node-tagged
+    counters of its device work (``device_work_nodes``)."""
 
     env = {"TPU3FS_USRBIO": "0"}
+    rpc = "python"                     # every child's --rpc
+    push_s = SOCK_PUSH_S
 
     def __init__(self, logdir: Path, device: str = "cuda"):
+        import tempfile
+
         self.logdir, self.device, self.procs = logdir, device, []
         self.shm = ShmLedger()
+        self.engines = {}
+        self.device_files = {}  # SIGKILLed pid -> its card files then
         logdir.mkdir(parents=True, exist_ok=True)
+        RUN_DIR.mkdir(exist_ok=True)
+        self.data_root = Path(tempfile.mkdtemp(
+            prefix=f"{type(self).__name__}-", dir=RUN_DIR))
         try:
             self._boot()
         except BaseException:
@@ -3921,6 +4015,10 @@ class SockProcesses:
     def _boot(self) -> None:
         from tpu3fs_torch.rpc.services import MgmtdAdminRpcClient
 
+        self.mon_addr = ("127.0.0.1", free_port())
+        self._start("monitor", "monitor_main", SOCK_MONITOR, [
+            "--port", str(self.mon_addr[1]),
+            f"--config.out_path={self.logdir / 'samples.db'}"])
         port = free_port()
         self.maddr = ("127.0.0.1", port)
         self.admin = MgmtdAdminRpcClient(self.maddr)
@@ -3948,21 +4046,42 @@ class SockProcesses:
         n = sum(1 for c in self.procs if c.node_id == node_id)
         name = name if not n else f"{name}-{n + 1}"
         path = self.logdir / f"{name}.log"
+        xlog = self.logdir / f"{name}.xlog"
+        rpc = ["--rpc", self.rpc] if self.rpc != "python" else []
         with open(path, "w") as out:
             proc = subprocess.Popen(
                 [sys.executable, "-m", f"tpu3fs_torch.bin.{module}",
-                 "--node-id", str(node_id), "--device", self.device, *args],
+                 "--node-id", str(node_id), "--device", self.device,
+                 "--log_file", str(xlog), *rpc, *args],
                 stdout=out, stderr=subprocess.STDOUT,
                 env={**os.environ, **self.env})
         self.procs.append(SimpleNamespace(name=name, node_id=node_id,
-                                          proc=proc, log=path, killed=False))
+                                          proc=proc, log=path, xlog=xlog,
+                                          killed=False))
+
+    def data_dir(self, node_id: int) -> Path:
+        return self.data_root / f"node{node_id}"
+
+    def push(self) -> list:
+        """A child's flags that point its samples at the collector."""
+        return [f"--config.collector={self.mon_addr[0]}:{self.mon_addr[1]}",
+                f"--config.monitor_push_period_s={self.push_s}"]
 
     def _storage(self, node_id: int) -> None:
         self._start(f"storage{node_id}", "storage_main", node_id, [
             "--mgmtd=%s:%d" % self.maddr, "--heartbeat_interval", "0.5",
-            "--config.engine=mem", "--config.usrbio=0",
-            "--config.target_scan_interval_s=0.5",
-            "--config.resync_interval_s=0.5"])
+            f"--config.data_dir={self.data_dir(node_id)}",
+            "--config.usrbio=0", "--config.target_scan_interval_s=0.5",
+            "--config.resync_interval_s=0.5", *self.push()])
+
+    def engine_classes(self) -> dict:
+        """storage child -> {target id: the engine class its log names}."""
+        out = {}
+        for c in self.procs:
+            if c.name.startswith("storage") and c.xlog.exists():
+                out[c.name] = {int(t): cls for _, t, cls in
+                               OPENED.findall(c.xlog.read_text())}
+        return out
 
     def registered(self, node_id: int, after_port: int = 0):
         """The node's routing entry once it has registered an address
@@ -3991,6 +4110,7 @@ class SockProcesses:
 
         child.proc.send_signal(signal.SIGSTOP)
         self.snap_shm()
+        self.device_files[child.proc.pid] = fleet_device_files(child.proc.pid)
         self.shm.killed.add(child.proc.pid)
         child.proc.send_signal(signal.SIGKILL)
         child.proc.wait(SOCK_CHILD_STOP_S)
@@ -4004,9 +4124,15 @@ class SockProcesses:
                                          node_id),
                   f"mgmtd to take node {node_id}'s targets down")
 
-    def restart(self, node_id: int) -> None:
-        """A new process for the node, its targets empty."""
+    def restart(self, node_id: int, keep_data: bool = False) -> None:
+        """A new process for the node: by default on an emptied data dir
+        (a replaced disk: its targets start empty), with ``keep_data`` on
+        the dir the killed process left (its WAL replays)."""
+        import shutil
+
         old = self.admin.refresh_routing().nodes[node_id].port
+        if not keep_data:
+            shutil.rmtree(self.data_dir(node_id), ignore_errors=True)
         self._storage(node_id)
         self.registered(node_id, after_port=old)
 
@@ -4020,10 +4146,12 @@ class SockProcesses:
     def gc(self) -> int:
         return 0  # meta's own GC loop collects (every 0.5 s)
 
-    def close(self) -> list:
+    def close(self, keep_data: bool = False) -> list:
         """SIGTERM every live child and wait for each; -> problems: a
         child that had to be killed, exited non-zero, or whose log holds
-        a traceback. A child killed on purpose exits -9."""
+        a traceback, or a storage process off the native engine. A child
+        killed on purpose exits -9. The data dirs go too, unless
+        ``keep_data`` (then ``remove_data`` removes them)."""
         import signal
 
         bad = []
@@ -4048,7 +4176,30 @@ class SockProcesses:
             if "Traceback" in text:
                 bad.append(f"{c.name}'s log holds a traceback:\n"
                            + text[text.index("Traceback"):][:2000])
+        # every target of every storage process on the C++ engine: "auto"
+        # falls back to the mem engine with only a WARN when the library
+        # does not build
+        self.engines = self.engine_classes()
+        for name, targets in self.engines.items():
+            killed = any(c.killed for c in self.procs if c.name == name)
+            if not targets and not killed:
+                bad.append(f"{name}'s log names no opened target")
+            other = {t: cls for t, cls in targets.items()
+                     if cls != "NativeChunkEngine"}
+            if other:
+                bad.append(f"{name} opened targets off the native engine: "
+                           f"{other}")
+        if not keep_data:
+            self.remove_data()
         return bad
+
+    def remove_data(self) -> None:
+        """Remove this cluster's data dirs (and RUN_DIR once empty)."""
+        import shutil
+
+        shutil.rmtree(self.data_root, ignore_errors=True)
+        with contextlib.suppress(OSError):
+            RUN_DIR.rmdir()
 
 
 def sock_inputs(depth: int = FAB_STRIPES) -> dict:
@@ -4424,47 +4575,96 @@ def sock_warm(ctl, dev) -> tuple:
         sc.close()
 
 
-def sock_on_card(pids) -> dict:
-    """Each storage process runs on the card: ``nvidia-smi`` lists its pid
-    among the compute apps, or, where nvidia-smi sees the processes in
-    another pid namespace (it may list every process as pid 1), the
-    process has the card's device file open and has mapped the built
-    kernel library, which a process loads only at its first kernel
-    launch; nvidia-smi must then still count one compute app for this
-    process and one for each storage process. -> nvidia-smi's listing and
-    each pid's proof."""
-    from tpu3fs_torch import kernels
+def device_work_nodes(ctl) -> dict:
+    """The storage nodes whose own counters show device work in the phase:
+    it coordinated an EC rebuild (``ec.rebuild_shards``: K1 decodes) or
+    accumulated chain-encode parity (``ec.chain_encode_bytes``: K1 and K2
+    a hop), by the node tag of the samples its processes pushed to the
+    phase's collector, read once two reads ``ctl.push_s`` apart agree.
+    -> node id -> the pids of its storage processes, live or SIGKILLed."""
+    from tpu3fs_torch.monitor.collector import (COLLECTOR_SERVICE_ID,
+                                                AggQueryReq, AggQueryRsp)
+    from tpu3fs_torch.rpc.net import RpcClient
 
+    cli = RpcClient()
+
+    def read() -> dict:
+        got = collections.Counter()
+        for name in ("ec.rebuild_shards", "ec.chain_encode_bytes"):
+            rsp = cli.call(ctl.mon_addr, COLLECTOR_SERVICE_ID, 3,
+                           AggQueryReq(name=name, window_s=3600.0),
+                           AggQueryRsp)
+            for row in rsp.rows:
+                if row.vsum and "node" in row.tags:
+                    got[int(row.tags["node"])] += row.vsum
+        return dict(got)
+
+    try:
+        deadline = time.monotonic() + 60.0
+        prev = None
+        while True:
+            time.sleep(2.5 * ctl.push_s)
+            cur = read()
+            if cur == prev:
+                break
+            require(time.monotonic() < deadline,
+                    "the collector's device-work counters never settled")
+            prev = cur
+    finally:
+        cli.close()
+    return {n: [c.proc.pid for c in ctl.procs
+                if c.node_id == n and c.name.startswith("storage")]
+            for n in sorted(cur)}
+
+
+def sock_on_card(pids, killed=None, worked=None) -> dict:
+    """Which storage (or serving) processes did device work on the card. A
+    process that launched a kernel holds a CUDA context, which maps
+    ``/dev/nvidia-uvm`` (asking whether a card exists, as ``--device
+    cuda`` does, opens the card's files but makes no context), and has
+    mapped the built kernel library; ``nvidia-smi`` lists it among the
+    compute apps, or, where nvidia-smi sees the processes in another pid
+    namespace (it may list every process as pid 1), counts one app for
+    it. ``killed``: the card files of the processes SIGKILLed during the
+    phase, read just before each kill. On the C++ engine a storage process
+    checksums on the host, so only its decodes and chain-encode hops
+    launch kernels: a process with no context is reported under
+    ``no_launch``, at least one must have launched, and every node in
+    ``worked`` (``device_work_nodes``: its counters show decodes or
+    hops) must have launched in one of its processes, which a process
+    that ran that work on the CPU would not. -> nvidia-smi's listing,
+    each launching pid's proof and the pids with no launch."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-compute-apps=pid,used_memory",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     listed = {int(line.split(",")[0]) for line in smi if line.strip()}
-    if not set(pids) <= listed:
-        # another pid namespace: nvidia-smi must still count a compute
-        # app for this process and for each storage process
-        require(len(smi) >= 1 + len(pids), f"nvidia-smi lists {len(smi)} "
-                f"compute apps for this process and {len(pids)} storage "
-                f"processes: {smi}")
-    proof = {}
-    for pid in pids:
-        if pid in listed:
-            proof[pid] = "nvidia-smi"
+    seen = {pid: fleet_device_files(pid) for pid in pids}
+    proof, idle = {}, []
+    for pid, files in [*seen.items(), *(killed or {}).items()]:
+        if "/dev/nvidia-uvm" not in files["mapped"]:
+            idle.append(pid)
             continue
-        fds = []
-        for fd in Path(f"/proc/{pid}/fd").iterdir():
-            try:
-                fds.append(os.readlink(fd))
-            except OSError:
-                pass
-        cards = sorted({f for f in fds if re.fullmatch(r"/dev/nvidia\d+", f)})
-        maps = Path(f"/proc/{pid}/maps").read_text()
-        lib = str(kernels.BUILD_DIR.resolve() / "libtpu3fs_torch_")
-        require(cards and lib in maps, f"storage process {pid}: not listed "
-                f"by nvidia-smi ({smi}), card files {cards}, kernel library "
-                f"mapped {lib in maps}")
-        proof[pid] = f"{cards[0]} open, kernel library mapped"
-    return {"nvidia_smi": smi, "pids": proof}
+        require(files["kernel_library"], f"process {pid} holds a CUDA "
+                f"context but no kernel library: {files}")
+        proof[pid] = ("nvidia-smi" if pid in listed else
+                      "CUDA context and kernel library mapped"
+                      + (" when SIGKILLed" if pid not in seen else ""))
+    require(proof, f"no storage process launched a kernel ({pids}, "
+            f"killed {sorted(killed or {})})")
+    for node_id, node_pids in (worked or {}).items():
+        require(set(node_pids) & set(proof), f"node {node_id} did device "
+                f"work, but none of its processes {node_pids} holds a "
+                f"CUDA context and the kernel library: {seen}")
+    live = set(proof) & set(seen)
+    if not live <= listed:
+        # another pid namespace: nvidia-smi must still count a compute
+        # app for this process and for each live one with a context
+        require(len(smi) >= 1 + len(live), f"nvidia-smi lists {len(smi)} "
+                f"compute apps for this process and {len(live)} live "
+                f"processes with a CUDA context: {smi}")
+    return {"nvidia_smi": smi, "pids": proof, "no_launch": idle,
+            "worked": sorted(worked or {})}
 
 
 def sock_part(part: str, dev, full: dict, inputs: dict, body: bytes,
@@ -4486,7 +4686,9 @@ def sock_part(part: str, dev, full: dict, inputs: dict, body: bytes,
                             trace)
         if part == "b":
             if dev.type == "cuda":
-                info["on_card"] = sock_on_card(ctl.pid_of("storage"))
+                info["on_card"] = sock_on_card(ctl.pid_of("storage"),
+                                               ctl.device_files,
+                                               device_work_nodes(ctl))
             with one_rank_group(dev) as mesh:
                 rec["data"] = sock_dataload(ctl, dev, full, mesh, body,
                                             requests, stall, info)
@@ -4640,6 +4842,7 @@ class FleetProcesses(SockProcesses):
     so that a 16-page peerRead fits its ring)."""
 
     env = {"TPU3FS_USRBIO": "1"}
+    push_s = FLEET_PUSH_S
 
     def _boot(self) -> None:
         from tpu3fs_torch.rpc.services import MgmtdAdminRpcClient, MgmtdRpcClient
@@ -4658,9 +4861,6 @@ class FleetProcesses(SockProcesses):
         self._start("monitor", "monitor_main", FLEET_MONITOR, [
             "--port", str(self.mon_addr[1]),
             f"--config.out_path={self.logdir / 'samples.db'}"])
-        self.push = [f"--config.collector={self.mon_addr[0]}:"
-                     f"{self.mon_addr[1]}",
-                     f"--config.monitor_push_period_s={FLEET_PUSH_S}"]
         port = free_port()
         self.maddr = ("127.0.0.1", port)
         self.admin = MgmtdAdminRpcClient(self.maddr)
@@ -4669,7 +4869,7 @@ class FleetProcesses(SockProcesses):
             "--port", str(port), "--kv", self.kv_flag,
             f"--config.meta_partitions={FLEET_PARTS}",
             f"--config.tick_interval_s={FLEET_BEAT_S}",
-            "--config.heartbeat_timeout_s=5", *self.push])
+            "--config.heartbeat_timeout_s=5", *self.push()])
         sock_wait(lambda: self.admin.refresh_routing() is not None,
                   "mgmtd to answer")
         for node_id in SOCK_IDS:
@@ -4687,7 +4887,7 @@ class FleetProcesses(SockProcesses):
                 "--mgmtd=%s:%d" % self.maddr, "--kv", self.kv_flag,
                 "--meta-partitions", str(FLEET_PARTS),
                 "--heartbeat_interval", str(FLEET_BEAT_S),
-                "--config.gc_interval_s=1", *self.push])
+                "--config.gc_interval_s=1", *self.push()])
             node = self.registered(node_id)
             self.meta_addrs.append((node.host, node.port))
 
@@ -4704,7 +4904,7 @@ class FleetProcesses(SockProcesses):
                 f"--config.capacity_bytes={FLEET_TIER}",
                 f"--config.dirty_max_bytes={FLEET_TIER}",
                 f"--config.peer_est_bytes={FLEET_PEER_EST}",
-                f"--config.peer_iov_bytes={FLEET_PEER_IOV}", *self.push])
+                f"--config.peer_iov_bytes={FLEET_PEER_IOV}", *self.push()])
             self.serving[node_id] = sock_wait(
                 lambda n=node_id: self.admin.refresh_routing().serving.get(n),
                 f"serving {node_id} to register")
@@ -4714,9 +4914,9 @@ class FleetProcesses(SockProcesses):
         self._start(f"storage{node_id}", "storage_main", node_id, [
             "--mgmtd=%s:%d" % self.maddr,
             "--heartbeat_interval", str(FLEET_BEAT_S),
-            "--config.engine=mem",
+            f"--config.data_dir={self.data_dir(node_id)}",
             "--config.target_scan_interval_s=0.5",
-            "--config.resync_interval_s=0.5", *self.push])
+            "--config.resync_interval_s=0.5", *self.push()])
 
     def _kvd(self, node_id: int) -> None:
         peers = ",".join(f"{n}={h}:{p}" for n, (h, p) in
@@ -4773,9 +4973,13 @@ def fleet_device_files(pid: int) -> dict:
             pass
     maps = Path(f"/proc/{pid}/maps").read_text()
     mapped = sorted({m for m in re.findall(r"/dev/nvidia[\w-]*", maps)})
-    lib = str(kernels.BUILD_DIR.resolve() / "libtpu3fs_torch_")
+    # the kernel library is libtpu3fs_torch_<digest>.so; the host
+    # libraries beside it carry their name before the digest
+    lib = re.escape(str(kernels.BUILD_DIR.resolve())) \
+        + r"/libtpu3fs_torch_[0-9a-f]+\.so$"
     return {"open": sorted(f for f in fds if f.startswith("/dev/nvidia")),
-            "mapped": mapped, "kernel_library": lib in maps}
+            "mapped": mapped,
+            "kernel_library": re.search(lib, maps, re.M) is not None}
 
 
 def fleet_off_card(pids: list, on_pids: list) -> dict:
@@ -5182,9 +5386,11 @@ def fleet(dev) -> dict:
             info["shards_checked"] = n_checked
             if dev.type == "cuda":
                 on = ctl.pid_of("storage") + ctl.pid_of("serving")
-                info["on_card"] = sock_on_card(on)
+                info["on_card"] = sock_on_card(on, ctl.device_files,
+                                               device_work_nodes(ctl))
                 info["off_card"] = fleet_off_card(
-                    ctl.pid_of("kvd") + ctl.pid_of("monitor"), on)
+                    ctl.pid_of("kvd") + ctl.pid_of("monitor"),
+                    [p for p in info["on_card"]["pids"] if p in on])
             # 7: a storage process dies; B's tail from storage, degraded
             # (K1 here), its prefix from 62's host tier
             ctl.fail(SOCK_IDS[-1])
@@ -5259,16 +5465,16 @@ RING_CHUNKS = 32               # usrbio_bench's batch: 32 chunks of 1 MiB
 # a 256 MiB file, not 1 GiB: the agent syncs the file's length with meta
 # after every block written, and meta asks every chain for its last
 # chunk, so a block costs more the longer the file (on an H100 machine a
-# 1 GiB pass took over 800 s)
-RING_API_MIB, RING_API_DEPTH = 256, 32
+# 1 GiB pass took over 800 s); 2 turns on each client, not RING_TURNS:
+# 3 turns at 256 MiB took 122 s of the phase on the C++ engine, which
+# left the script over its 900 s
+RING_API_MIB, RING_API_DEPTH, RING_API_TURNS = 256, 32, 2
 RING_API_POOL = 64             # distinct 1 MiB source blocks of the API file
 # the loader's epochs read 2 of phase 13's 4 record files (2,048 of 4,096
 # records), for the script's time limit
 RING_LOADER_FILES = 2
-RING_PUSH_S = 0.5              # the storage processes' sample push period
 RING_ROUTING_TTL_S = 0.5       # both clients' routing cache
 RING_IOV_MIB = 64              # a messenger's ring iov (TPU3FS_USRBIO_IOV_MB)
-RING_MONITOR = 300
 SHM_DIR = "/dev/shm"
 SHM_PREFIXES = ("tpu3fs-iov-", "tpu3fs-ior-", "tpu3fs-hs-", "sem.tpu3fs-ior-")
 
@@ -5411,34 +5617,25 @@ def require_transport(what: str, before, after, transport: str) -> dict:
 class RingProcesses(SockProcesses):
     """Phase 19: phase 17 (b)'s cluster with the storage processes on the
     JAX package's default ``usrbio=1`` (each hosts rings, and its own
-    messengers ride rings to the other storage processes), and a
-    ``monitor_main`` to which each storage process pushes its samples
-    every RING_PUSH_S (its ``usrbio.completed`` and ``usrbio.bytes``)."""
+    messengers ride rings to the other storage processes); the samples
+    each pushes to the collector carry its ``usrbio.completed`` and
+    ``usrbio.bytes``."""
 
     env = {"TPU3FS_USRBIO": "1"}
-
-    def _boot(self) -> None:
-        self.mon_addr = ("127.0.0.1", free_port())
-        self._start("monitor", "monitor_main", RING_MONITOR, [
-            "--port", str(self.mon_addr[1]),
-            f"--config.out_path={self.logdir / 'samples.db'}"])
-        super()._boot()
 
     def _storage(self, node_id: int) -> None:
         self._start(f"storage{node_id}", "storage_main", node_id, [
             "--mgmtd=%s:%d" % self.maddr, "--heartbeat_interval", "0.5",
-            "--config.engine=mem",
+            f"--config.data_dir={self.data_dir(node_id)}",
             "--config.target_scan_interval_s=0.5",
-            "--config.resync_interval_s=0.5",
-            f"--config.collector={self.mon_addr[0]}:{self.mon_addr[1]}",
-            f"--config.monitor_push_period_s={RING_PUSH_S}"])
+            "--config.resync_interval_s=0.5", *self.push()])
 
     def fail(self, node_id: int) -> None:
         super().fail(node_id)
         time.sleep(RING_ROUTING_TTL_S)  # the clients' routing caches
 
-    def restart(self, node_id: int) -> None:
-        super().restart(node_id)
+    def restart(self, node_id: int, keep_data: bool = False) -> None:
+        super().restart(node_id, keep_data)
         time.sleep(RING_ROUTING_TTL_S)
 
 
@@ -5491,13 +5688,13 @@ class RingSide:
         self.sc.close()
 
 
-def ring_turns(sides: dict, fn) -> dict:
-    """``fn(side, turn)`` on both clients, RING_TURNS turns, the order
+def ring_turns(sides: dict, fn, turns: int = RING_TURNS) -> dict:
+    """``fn(side, turn)`` on both clients, ``turns`` turns, the order
     rotated each turn (ring first, then socket first, ...); every call of
     the ring client must ride rings only, every call of the socket client
     sockets only. -> client name -> [fn's result a turn]."""
     out = {"ring": [], "socket": []}
-    for turn in range(RING_TURNS):
+    for turn in range(turns):
         order = ("ring", "socket") if turn % 2 == 0 else ("socket", "ring")
         for name in order:
             side = sides[name]
@@ -5679,6 +5876,7 @@ class RingCollector:
 
     NAMES = ("usrbio.completed", "usrbio.bytes", "usrbio.calls_ring",
              "usrbio.calls_socket")
+    PREFIXES = ("usrbio.",)
 
     def __init__(self, ctl):
         from tpu3fs_torch.rpc.net import RpcClient
@@ -5689,19 +5887,20 @@ class RingCollector:
         from tpu3fs_torch.monitor.collector import (COLLECTOR_SERVICE_ID,
                                                     AggQueryReq, AggQueryRsp)
 
-        rsp = self.cli.call(self.addr, COLLECTOR_SERVICE_ID, 3,
-                            AggQueryReq(name="usrbio.", prefix=True,
-                                        window_s=3600.0), AggQueryRsp)
         got = collections.Counter()
-        for row in rsp.rows:
-            got[row.name] += row.vsum
+        for prefix in self.PREFIXES:
+            rsp = self.cli.call(self.addr, COLLECTOR_SERVICE_ID, 3,
+                                AggQueryReq(name=prefix, prefix=True,
+                                            window_s=3600.0), AggQueryRsp)
+            for row in rsp.rows:
+                got[row.name] += row.vsum
         return {n: int(got[n]) for n in self.NAMES}
 
     def settled(self) -> dict:
         prev = None
         deadline = time.monotonic() + 60.0
         while True:
-            time.sleep(2.5 * RING_PUSH_S)
+            time.sleep(2.5 * SOCK_PUSH_S)
             cur = self.totals()
             if cur == prev:
                 return cur
@@ -5886,7 +6085,7 @@ def ring_api(sides: dict) -> tuple:
     each client's ``FileIoClient`` and meta, a ``UsrbioClient`` on it; a
     RING_API_MIB file written sequentially in 1 MiB blocks at depth 32
     (the fio_usrbio seq-write shape) and read back the same way, each
-    client in turns, every block checked against its source. A turn's
+    client in RING_API_TURNS turns, every block checked against its source. A turn's
     files are removed after it, but the last turn's (read again later,
     degraded: ``ring_api_degraded``): the agent's per-block length sync
     scans every chunk of a target, so files left behind would slow the
@@ -5908,12 +6107,12 @@ def ring_api(sides: dict) -> tuple:
         require(side.meta.stat(path).length == RING_API_MIB * MIB,
                 f"{path}: its length")
         r = api_pass(api.clients[side.name], path, pool, False)
-        if turn < RING_TURNS - 1:
+        if turn < RING_API_TURNS - 1:
             side.meta.remove(path)
         return {"seq_write_GiB_s": gib / w, "seq_read_GiB_s": gib / r}
 
     try:
-        rows = ring_turns(sides, run)
+        rows = ring_turns(sides, run, RING_API_TURNS)
     except BaseException:
         ring_api_close(api)
         raise
@@ -5927,7 +6126,7 @@ def ring_api_degraded(ctl, sides: dict, api) -> dict:
     of the last turn."""
     gib = RING_API_MIB / 1024
     ctl.fail(SOCK_IDS[1])
-    last = RING_TURNS - 1
+    last = RING_API_TURNS - 1
     out = {}
     for name in ("ring", "socket") if last % 2 == 0 else ("socket", "ring"):
         side = sides[name]
@@ -6017,7 +6216,9 @@ def rings(dev, full: dict) -> dict:
                 + json.dumps(legs["api"]["degraded_seq_read_GiB_s"]))
             counts = read_counts()
             if dev.type == "cuda":
-                info["on_card"] = sock_on_card(ctl.pid_of("storage"))
+                info["on_card"] = sock_on_card(ctl.pid_of("storage"),
+                                               ctl.device_files,
+                                               device_work_nodes(ctl))
             info["calls"] = {n: {f"{t}:{m}": v for (t, m), v in
                                  sorted(s.calls().items())}
                              for n, s in sides.items()}
@@ -6053,12 +6254,493 @@ def rings(dev, full: dict) -> dict:
     return {n: counts[n] for n in counters()}
 
 
+# -- phase 20 ----------------------------------------------------------------
+# turns of each request on each client: 2, not phase 19's 3, for the
+# script's 900 s (the whole run took 916.5 s with 3 here and phase 19's
+# API at 3 turns of 256 MiB, on the C++ engine on a 9p disk)
+NATIVE_TURNS = 2
+NATIVE_DOWN_STRIPES = 4    # RS(12,4) stripes written while a node is down
+NATIVE_DOWN_CR = 8         # 1 MiB CR chunks written while it is down
+NATIVE_CHECK_BATCH = 32    # chunks a batch read of the engine-CRC check
+NATIVE_PUSH_S = 0.25       # the storage processes' sample push period
+NATIVE_NO_COMPACT_S = 3600  # the punch-hole compaction, parked: a restart
+                            # replays the WAL of every chunk committed
+
+
+class NativeProcesses(RingProcesses):
+    """Phase 20: phase 17 (b)'s cluster on the native paths. Every child
+    serves on ``--rpc native`` (the C++ transport); the storage processes
+    run ``engine=native`` (the C++ engine, each on its own data dir under
+    RUN_DIR), host no rings (``usrbio=0``: every call rides the C++
+    transport), push their fast-path, resync and rebuild counters to a
+    ``monitor_main`` every NATIVE_PUSH_S and never run the punch-hole
+    compaction (NATIVE_NO_COMPACT_S), so that a killed process's WALs
+    hold all it committed."""
+
+    env = {"TPU3FS_USRBIO": "0"}
+    rpc = "native"
+    push_s = NATIVE_PUSH_S
+
+    def _storage(self, node_id: int) -> None:
+        self._start(f"storage{node_id}", "storage_main", node_id, [
+            "--mgmtd=%s:%d" % self.maddr, "--heartbeat_interval", "0.5",
+            "--config.engine=native",
+            f"--config.data_dir={self.data_dir(node_id)}",
+            "--config.usrbio=0", "--config.target_scan_interval_s=0.5",
+            "--config.resync_interval_s=0.5",
+            f"--config.punch_hole_interval_s={NATIVE_NO_COMPACT_S}",
+            *self.push()])
+
+    def target_dirs(self, node_id: int) -> list:
+        """The node's target directories (``disk<i>/target<id>``)."""
+        return sorted(self.data_dir(node_id).glob("disk*/target*"))
+
+
+class NativeCollector(RingCollector):
+    """The storage processes' C fast-path counters (``fastpath.*``: reads
+    and head writes the C workers served, and their fallbacks), the CR
+    resync's and the EC rebuild's moves, summed over the processes."""
+
+    NAMES = ("fastpath.read_served", "fastpath.read_fallbacks",
+             "fastpath.write_served", "fastpath.write_fallbacks",
+             "storage.resync_chunks", "storage.resync_bytes",
+             "ec.rebuild_shards", "ec.rebuild_bytes")
+    PREFIXES = ("fastpath.", "storage.resync_", "ec.rebuild_")
+
+    def settled(self) -> dict:
+        """The totals once two reads agree: the first after a scan (the
+        bridge publishes at each, 0.5 s) and a push, the next 0.5 s on."""
+        deadline = time.monotonic() + 60.0
+        time.sleep(0.5 + 2 * NATIVE_PUSH_S)
+        prev = self.totals()
+        while True:
+            time.sleep(0.5)
+            cur = self.totals()
+            if cur == prev:
+                return cur
+            require(time.monotonic() < deadline,
+                    "the collector's fast-path totals never settled")
+            prev = cur
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+class NativeSide:
+    """One of phase 20's two clients over the same processes, built by
+    ``StubFactory``: ``"native"`` (the C++ client) or ``"tcp"`` (the
+    Python one). Its storage client on ``dev``, a ``FileIoClient`` and a
+    meta client share the factory's one RPC client; the messenger is
+    built under ``TPU3FS_USRBIO=0``, so every call rides that client."""
+
+    def __init__(self, ctl, dev, native: bool):
+        from unittest import mock
+
+        from tpu3fs_torch.client.file_io import FileIoClient
+        from tpu3fs_torch.client.stubs import StubFactory
+        from tpu3fs_torch.rpc.native_net import NativeRpcClient
+
+        self.name = "native" if native else "python"
+        self.stubs = StubFactory("native" if native else "tcp",
+                                 mgmtd_addr=ctl.maddr,
+                                 meta_addr=ctl.meta_addr)
+        require(isinstance(self.stubs.rpc_client(), NativeRpcClient)
+                == native, f"{self.name}: the stubs' client is "
+                f"{type(self.stubs.rpc_client()).__name__}")
+        with mock.patch.dict(os.environ, {"TPU3FS_USRBIO": "0"}):
+            self.sc = self.stubs.storage_client(f"smoke-{self.name}",
+                                                device=dev)
+        self.fio = FileIoClient(self.sc)
+        self.meta = self.stubs.meta_client()
+        self.messenger = self.sc._messenger
+
+    def calls(self) -> collections.Counter:
+        return transport_calls(self.messenger)
+
+    def close(self) -> None:
+        self.fio.close()
+        self.sc.close()
+        self.stubs.close()
+
+
+def native_turns(sides: dict, collector, fn) -> dict:
+    """``fn(side, turn)`` on both clients, NATIVE_TURNS turns in rotated
+    order; each turn's window of the storage processes' C counters rides
+    in its row (``served``), and every call of either client rides the
+    socket of its own RPC client. -> client name -> rows."""
+    out = {"native": [], "python": []}
+    before = collector.settled()
+    for turn in range(NATIVE_TURNS):
+        order = ("native", "python") if turn % 2 == 0 else ("python",
+                                                            "native")
+        for name in order:
+            side = sides[name]
+            calls = side.calls()
+            row = fn(side, turn)
+            require_transport(f"{name} client, turn {turn}", calls,
+                              side.calls(), "socket")
+            after = collector.settled()
+            row["served"] = delta(after, before)
+            before = after
+            out[name].append(row)
+    return out
+
+
+def native_bench(sides: dict, collector) -> dict:
+    """usrbio_bench's shape on the CR chain (ring_bench's requests) on the
+    native and the Python client in turns; on every native turn the C
+    workers served reads and head writes (a silent fallback to the
+    Python dispatch fails here)."""
+    from tpu3fs_torch.storage.craq import ReadReq
+    from tpu3fs_torch.storage.types import ChunkId
+
+    rng = np.random.default_rng(2020)
+    data = [rng.integers(0, 256, MIB, dtype=np.uint8).tobytes()
+            for _ in range(RING_CHUNKS)]
+    gib = RING_CHUNKS * MIB / (1 << 30)
+
+    def run(side, turn):
+        fid = 20_000 + 10 * turn + (side.name == "python")
+        sc, row = side.sc, {}
+        t0 = time.perf_counter()
+        got = sc.batch_write([(SOCK_CR_CHAIN, ChunkId(fid, i), 0, data[i])
+                              for i in range(RING_CHUNKS)], chunk_size=MIB)
+        row["batch_write_s"] = time.perf_counter() - t0
+        require(all(r.ok for r in got), f"{side.name}: a batch write failed")
+        t0 = time.perf_counter()
+        got = sc.batch_read([ReadReq(SOCK_CR_CHAIN, ChunkId(fid, i), 0, -1)
+                             for i in range(RING_CHUNKS)])
+        row["batch_read_s"] = time.perf_counter() - t0
+        require([bytes(r.data) for r in got] == data,
+                f"{side.name}: the batch read's bytes differ")
+        del got
+        t0 = time.perf_counter()
+        for i in range(RING_CHUNKS):
+            require(sc.write_chunk(SOCK_CR_CHAIN, ChunkId(fid + 5, i), 0,
+                                   data[i], chunk_size=MIB).ok,
+                    f"{side.name}: a single write failed")
+        row["write_op_ms"] = (time.perf_counter() - t0) * 1e3 / RING_CHUNKS
+        t0 = time.perf_counter()
+        for i in range(RING_CHUNKS):
+            r = sc.read_chunk(SOCK_CR_CHAIN, ChunkId(fid + 5, i))
+            require(r.ok and bytes(r.data) == data[i],
+                    f"{side.name}: a single read's bytes differ")
+        row["read_op_ms"] = (time.perf_counter() - t0) * 1e3 / RING_CHUNKS
+        row["batch_write_GiB_s"] = gib / row["batch_write_s"]
+        row["batch_read_GiB_s"] = gib / row["batch_read_s"]
+        return row
+
+    rows = native_turns(sides, collector, run)
+    for i, row in enumerate(rows["native"]):
+        require(row["served"]["fastpath.read_served"] > 0
+                and row["served"]["fastpath.write_served"] > 0,
+                f"native turn {i}: the C workers served "
+                f"{row['served']}: a silent fallback to Python dispatch")
+    ratio = {}
+    for key in ("batch_write_GiB_s", "batch_read_GiB_s", "write_op_ms",
+                "read_op_ms"):
+        nat = med([r[key] for r in rows["native"]])
+        py = med([r[key] for r in rows["python"]])
+        ratio[key] = {"native": nat, "python": py,
+                      "native_over_python": nat / py if py else None}
+    return {"turns": rows, **ratio}
+
+
+def dump_metas(messenger, routing, node_id: int) -> dict:
+    """target id -> {chunk key: (committed ver, length, crc)} of every
+    committed chunk the node's targets hold (``dump_chunkmeta``)."""
+    out = {}
+    for tid, info in routing.targets.items():
+        if info.node_id != node_id or not info.chain_id:
+            continue
+        out[tid] = {m.chunk_id.to_bytes(): (m.committed_ver, m.length,
+                                            m.checksum.value)
+                    for m in messenger(node_id, "dump_chunkmeta", tid)
+                    if m.committed_ver > 0}
+    return out
+
+
+def native_wal(ctl, node_id: int) -> dict:
+    """The write-ahead logs the node's killed process left in its target
+    dirs, by size only (opening a dir would replay and compact it)."""
+    sizes = [(p / "wal.log").stat().st_size for p in ctl.target_dirs(node_id)
+             if (p / "wal.log").exists()]
+    return {"targets": len(ctl.target_dirs(node_id)), "wal_files": len(sizes),
+            "wal_bytes": sum(sizes)}
+
+
+def native_replayed(before: dict, after: dict) -> int:
+    """Every chunk the node had committed before its SIGKILL (``before``)
+    is in what its restarted process serves (``after``, both from
+    ``dump_metas``) with its version, length and CRC. -> chunks kept."""
+    for tid, metas in before.items():
+        missing = {k for k in metas if after.get(tid, {}).get(k) != metas[k]}
+        require(not missing, f"target {tid}: {len(missing)} of "
+                f"{len(metas)} committed chunks lost or changed by the "
+                "restarted process's replay")
+    return sum(map(len, before.values()))
+
+
+def native_files(ctl, sides: dict, dev, inputs: dict, collector) -> dict:
+    """Phase 17's /a (48 RS(12,4) stripes) written and read by the native
+    client; the first storage process SIGKILLed and /a read degraded (K1
+    decodes of 4 lost shards a stripe here); NATIVE_DOWN_STRIPES stripes
+    and NATIVE_DOWN_CR CR chunks written while it is down; its data dir
+    left as the killed process left it (its WALs: NativeProcesses parks
+    the punch-hole compaction, so they hold every chunk it committed) and
+    a new process started on it: the time until its targets serve, what
+    the resync moved, which must be exactly what was written while it
+    was down, and every chunk it had committed before the SIGKILL served
+    by the new process as it was (its replay); every file read back."""
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.storage.craq import ReadReq
+    from tpu3fs_torch.storage.types import ChunkId
+
+    side, out = sides["native"], {}
+    body, mib = inputs["a"], len(inputs["a"]) / MIB
+    down = np.random.default_rng(2021).integers(
+        0, 256, (NATIVE_DOWN_STRIPES + NATIVE_DOWN_CR) * MIB,
+        dtype=np.uint8).tobytes()
+    w_body, cr = down[:NATIVE_DOWN_STRIPES * MIB], \
+        down[NATIVE_DOWN_STRIPES * MIB:]
+
+    def new_file(path, data):
+        res = side.meta.create(path, flags=OpenFlags.WRITE | OpenFlags.CREATE,
+                               client_id="smoke-native")
+        t0 = time.perf_counter()
+        side.fio.write(res.inode, 0, data)
+        dt = time.perf_counter() - t0
+        return side.meta.close(res.inode.id, res.session_id), dt
+
+    def read(inode, data, what):
+        t0 = time.perf_counter()
+        require(side.fio.read(inode, 0, len(data)) == data,
+                f"{what}: the bytes read differ")
+        return time.perf_counter() - t0
+
+    side.meta.mkdirs("/native", recursive=True)
+    a, dt = new_file("/native/a", body)
+    out["write_MiB_s"] = mib / dt
+    out["read_MiB_s"] = mib / read(a, body, "/native/a")
+    victim = SOCK_IDS[0]
+    routing = ctl.admin.refresh_routing()
+    before = dump_metas(side.messenger, routing, victim)
+    ctl.fail(victim)
+    out["degraded_MiB_s"] = mib / read(a, body, "/native/a degraded")
+    w, _ = new_file("/native/w", w_body)
+    got = side.sc.batch_write(
+        [(SOCK_CR_CHAIN, ChunkId(21_000, i), 0, cr[i * MIB:(i + 1) * MIB])
+         for i in range(NATIVE_DOWN_CR)], chunk_size=MIB)
+    require(all(r.ok for r in got), "a CR write while the node is down "
+            "failed")
+    out["replay"] = native_wal(ctl, victim)
+    require(out["replay"]["wal_bytes"] > 0, f"node {victim}'s killed "
+            f"process left no WAL to replay: {out['replay']}")
+    c0 = collector.settled()
+    t0 = time.perf_counter()
+    ctl.restart(victim, keep_data=True)
+    out["registered_s"] = time.perf_counter() - t0
+    sock_wait(lambda: sock_serving(ctl.admin.refresh_routing()),
+              "the restarted node's targets to serve")
+    out["serving_s"] = time.perf_counter() - t0
+    moved = delta(collector.settled(), c0)
+    per_node = (K + M) // len(SOCK_IDS)  # shards of a stripe on one node
+    out["moved"] = {k: moved[k] for k in (
+        "ec.rebuild_shards", "ec.rebuild_bytes", "storage.resync_chunks",
+        "storage.resync_bytes")}
+    require(moved["ec.rebuild_shards"] == NATIVE_DOWN_STRIPES * per_node
+            and moved["storage.resync_chunks"] == NATIVE_DOWN_CR
+            and moved["storage.resync_bytes"] == NATIVE_DOWN_CR * MIB,
+            f"the resync moved {out['moved']}, not just the "
+            f"{NATIVE_DOWN_STRIPES} stripes and {NATIVE_DOWN_CR} CR "
+            "chunks written while the node was down")
+    out["read_after_restart_MiB_s"] = mib / read(a, body, "/native/a")
+    read(w, w_body, "/native/w")
+    got = side.sc.batch_read([ReadReq(SOCK_CR_CHAIN, ChunkId(21_000, i))
+                              for i in range(NATIVE_DOWN_CR)])
+    require(b"".join(bytes(r.data) for r in got) == cr,
+            "the CR chunks written while the node was down differ")
+    out["replay"]["chunks_kept"] = native_replayed(
+        before, dump_metas(side.messenger, ctl.admin.refresh_routing(),
+                           victim))
+    return out
+
+
+def native_engine_crcs(ctl, side, dev) -> dict:
+    """Every chunk each storage process's engines hold, fetched by
+    target-addressed batch reads (the C read path) with the CRC the
+    engine reports, held against ``crc32c_many`` (K2 on the card) over
+    the bytes. -> chunks and bytes checked."""
+    from tpu3fs_torch.ops.crc32c import crc32c_many
+    from tpu3fs_torch.storage.craq import ReadReq
+
+    from tpu3fs_torch.storage.types import ChunkId
+
+    routing = ctl.admin.refresh_routing()
+    chunks = nbytes = 0
+    for node_id in SOCK_IDS:
+        metas = dump_metas(side.messenger, routing, node_id)
+        for tid, keys in metas.items():
+            chain = routing.targets[tid].chain_id
+            ids = [ChunkId.from_bytes(k) for k in sorted(keys)]
+            for i in range(0, len(ids), NATIVE_CHECK_BATCH):
+                reqs = [ReadReq(chain, cid, target_id=tid)
+                        for cid in ids[i:i + NATIVE_CHECK_BATCH]]
+                replies = side.messenger(node_id, "batch_read", reqs)
+                require(all(r.ok for r in replies),
+                        f"target {tid}: a chunk read failed")
+                bufs = [bytes(r.data) for r in replies]
+                require(crc32c_many(bufs, device=dev)
+                        == [r.checksum.value for r in replies],
+                        f"target {tid}: an engine CRC differs from K2's")
+                chunks += len(bufs)
+                nbytes += sum(map(len, bufs))
+    return {"chunks": chunks, "bytes": nbytes}
+
+
+def native_read_paths(ctl) -> dict:
+    """After the processes stopped: every target dir read here through
+    the engine's batch reads with io_uring and with pread
+    (``TPU3FS_NO_URING``), chunk for chunk equal. Where this machine
+    refuses io_uring both would be pread: only the path is reported."""
+    import hashlib
+    from unittest import mock
+
+    from tpu3fs_torch.storage.native_engine import (FS_TYPES,
+                                                    NativeChunkEngine,
+                                                    fs_type, read_path)
+
+    def digests(path):
+        e = NativeChunkEngine(str(path), device="cpu")
+        try:
+            metas = sorted(e.all_metadata(),
+                           key=lambda m: m.chunk_id.to_bytes())
+            cap = max([m.length for m in metas] + [1])
+            out = []
+            for i in range(0, len(metas), NATIVE_CHECK_BATCH):
+                items = [(m.chunk_id, 0, -1)
+                         for m in metas[i:i + NATIVE_CHECK_BATCH]]
+                for code, data, ver, crc, aux in e.batch_read(items, cap):
+                    out.append((int(code), hashlib.sha256(data).digest(),
+                                ver, crc, aux))
+            return out
+        finally:
+            e.close()
+
+    root = ctl.data_root
+    out = {"fs": FS_TYPES.get(fs_type(str(root)), hex(fs_type(str(root)))),
+           "read_path": read_path(str(root))}
+    if out["read_path"] != "io_uring":
+        return {**out, "compared": False}
+    t0 = time.perf_counter()
+    paths = [p for n in SOCK_IDS for p in ctl.target_dirs(n)]
+    chunks = 0
+    for path in paths:
+        with mock.patch.dict(os.environ, {"TPU3FS_NO_URING": "1"}):
+            sync = digests(path)
+        with mock.patch.dict(os.environ):
+            os.environ.pop("TPU3FS_NO_URING", None)
+            ring = digests(path)
+        require(sync == ring, f"{path}: io_uring and pread reads differ")
+        chunks += len(sync)
+    return {**out, "compared": True, "targets": len(paths), "chunks": chunks,
+            "s": time.perf_counter() - t0}
+
+
+def native(dev) -> dict:
+    """Phase 20: the native paths. Phase 17 (b)'s cluster with every
+    service on the C++ transport and the storage processes on the C++
+    engine on disk (NativeProcesses), driven by a StubFactory("native")
+    client and a Python-transport one: usrbio_bench's shape in rotated
+    turns (the C workers' reads and head writes counted each turn), /a
+    with a SIGKILL, a degraded read, writes while down and a restart on
+    the same data dir (the new process replays the killed one's WALs;
+    the resync moves only what was written while down), every engine CRC
+    against K2 on the card, and, where io_uring is allowed, the io_uring
+    and pread read paths chunk for chunk equal. K1 and K2
+    launch here as tensor-core kernels, no plain version. -> the
+    script's launches."""
+    import tempfile
+
+    t_phase = phase("phase 20: the native paths")
+    inputs = sock_inputs()
+    uncounted, info, legs = collections.Counter(), {}, {}
+    ctl, sides, problems, collector = None, {}, [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            ctl = NativeProcesses(Path(tmp), "cuda" if dev.type == "cuda"
+                                  else "cpu")
+            log(f"  booted {len(ctl.procs)} processes in {ctl.boot_s:.1f} s;"
+                f" engines {ctl.engine_classes()}")
+            collector = NativeCollector(ctl)
+            sides = {"native": NativeSide(ctl, dev, True),
+                     "python": NativeSide(ctl, dev, False)}
+            sock_warm(ctl, dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            legs["bench"] = native_bench(sides, collector)
+            log(f"  bench {time.perf_counter() - t0:.1f} s: "
+                + json.dumps({k: v for k, v in legs["bench"].items()
+                              if k != "turns"}))
+            t0 = time.perf_counter()
+            legs["files"] = native_files(ctl, sides, dev, inputs, collector)
+            log(f"  files {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["files"]))
+            c0 = read_counts()
+            t0 = time.perf_counter()
+            legs["engine_crcs"] = native_engine_crcs(ctl, sides["native"],
+                                                     dev)
+            c1 = read_counts()
+            uncounted.update({k: c1[k] - c0[k] for k in c1})
+            log(f"  engine CRCs {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["engine_crcs"]))
+            counts = read_counts()
+            if dev.type == "cuda":
+                info["on_card"] = sock_on_card(ctl.pid_of("storage"),
+                                               ctl.device_files,
+                                               device_work_nodes(ctl))
+            info["calls"] = {n: {f"{t}:{m}": v for (t, m), v in
+                                 sorted(s.calls().items())}
+                             for n, s in sides.items()}
+            info["storage_processes"] = collector.settled()
+            info["boot_s"] = ctl.boot_s
+            problems = ctl.close(keep_data=True)
+            info["engines"] = ctl.engines
+            require(not problems, f"phase 20: {problems}")
+            t0 = time.perf_counter()
+            legs["read_paths"] = native_read_paths(ctl)
+            log(f"  read paths {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["read_paths"]))
+        finally:
+            for side in sides.values():
+                side.close()
+            if collector is not None:
+                collector.close()
+            if ctl is not None:
+                ctl.close()  # stops what still runs, removes the data dirs
+                info["shm_cleanup"] = ctl.shm.cleanup()
+    require(not ctl.data_root.exists(), f"phase 20: {ctl.data_root} is "
+            "still there")
+    held = info["shm_cleanup"]["still_held"]
+    require(not held, f"phase 20: /dev/shm still holds {held}")
+    counts = {n: c - uncounted[n] for n, c in counts.items()}
+    require_main_path("the native paths", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    log(json.dumps({"native": legs, "info": info, "launches": counts,
+                    "card": card_line(),
+                    "seconds": time.perf_counter() - t_phase}, default=str))
+    log(f"native: launches {counts} ({time.perf_counter() - t_phase:.1f} s)")
+    return {n: counts[n] for n in counters()}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
     import tpu3fs_torch  # noqa: F401  (fails when run outside the repo)
 
     log(shm_line())
+    log(host_line())
     dev = torch.device("cuda")
     build()
     if sys.argv[1:] == ["--fold-variants"]:
@@ -6095,6 +6777,9 @@ def main() -> int:
     if sys.argv[1:] == ["--rings"]:
         rings(dev, train_data(dev, TRAIN_FULL))
         return 0
+    if sys.argv[1:] == ["--native"]:
+        native(dev)
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -6118,8 +6803,9 @@ def main() -> int:
     paths["sockets"] = sockets(dev, train_full)
     paths["fleet"] = fleet(dev)
     paths["rings"] = rings(dev, train_full)
+    paths["native"] = native(dev)
     for row in kernels:
-        for path in ("fetch", "sockets", "fleet", "rings"):
+        for path in ("fetch", "sockets", "fleet", "rings", "native"):
             row["launches_by_path"][path] = paths[path][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)

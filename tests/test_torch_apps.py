@@ -12,9 +12,9 @@ an in-process mgmtd, serves a write and a read and exits 0 on SIGTERM
 within 10 s. The storage and serving apps host USRBIO rings by default
 (``usrbio=1``, ``peer_usrbio=1``) and the messenger rides them unless
 ``TPU3FS_USRBIO=0``, as in the JAX package; a client of the in-process
-cluster is shown riding a ring. The options the port does not have (the
-native transport and engine) raise ``NotImplementedError`` naming their
-ROADMAP item; the network KV (``--kv``, one kvd or a group), the
+cluster is shown riding a ring. The native options (``--rpc native``,
+``engine=native``, ``StubFactory("native")``) build and serve, and a
+cluster on them takes a file; the network KV (``--kv``, one kvd or a group), the
 sharded metadata plane (``--meta-partitions``) and the in-memory stubs
 serve. An app with no card and no device raises at construction. A received bulk segment is
 copied on install and never written. Every wait is bounded and no
@@ -190,6 +190,75 @@ def test_cluster_failover_write_after_node_death(cluster):
         fio.storage.close()
 
 
+def test_native_cluster_end_to_end(tmp_path):
+    """The JAX README's deployment on the port: every app on ``--rpc
+    native``, storage on ``engine=native`` under ``data_dir``, the client
+    from ``StubFactory("native")``. A file goes in and out; every target
+    runs the C++ engine on disk, and the storage servers' C paths serve
+    reads and head writes."""
+    from tpu3fs_torch.storage.native_engine import NativeChunkEngine
+
+    before = set(threading.enumerate())
+    apps, stubs = [], None
+    try:
+        mgmtd = MgmtdApp(["--node-id", "1", "--rpc", "native",
+                          "--config.tick_interval_s=0.2"], **CPU)
+        mgmtd.run_background()
+        apps.append(mgmtd)
+        maddr = f"{mgmtd.info.hostname}:{mgmtd.info.port}"
+        storages = []
+        for node_id in (101, 102):
+            app = StorageApp([
+                "--node-id", str(node_id), "--mgmtd", maddr, "--rpc",
+                "native", "--heartbeat_interval", "0.3",
+                "--config.engine=native",
+                f"--config.data_dir={tmp_path / str(node_id)}",
+                "--config.usrbio=0",
+                "--config.target_scan_interval_s=0.2"], **CPU)
+            app.run_background()
+            apps.append(app)
+            storages.append(app)
+        admin = MgmtdAdminRpcClient((mgmtd.info.hostname, mgmtd.info.port))
+        for tid, app in ((1001, storages[0]), (1002, storages[1])):
+            admin.create_target(tid, node_id=app.info.node_id)
+        admin.upload_chain(900, [1001, 1002])
+        admin.upload_chain_table(1, [900])
+        for app in storages:
+            app.scan_targets()
+            app.heartbeat_once()
+        meta = MetaApp(["--node-id", "201", "--mgmtd", maddr, "--rpc",
+                        "native", "--heartbeat_interval", "0.3"], **CPU)
+        meta.run_background()
+        apps.append(meta)
+        for app in storages:  # routing now SERVING: the fast paths sync
+            app.heartbeat_once()
+            app.scan_targets()
+        stubs = StubFactory("native", mgmtd_addr=(mgmtd.info.hostname,
+                                                  mgmtd.info.port),
+                            meta_addr=(meta.info.hostname, meta.info.port))
+        mc = stubs.meta_client()
+        rsp = mc.create("/n.bin", flags=OpenFlags.WRITE | OpenFlags.CREATE)
+        fio = stubs.file_client("native-test", **CPU)
+        payload = bytes(range(256)) * 300
+        fio.write(rsp.inode, 0, payload)
+        assert fio.read(rsp.inode, 0, len(payload)) == payload
+        fio.close()
+        for app in storages:
+            assert all(isinstance(t.engine, NativeChunkEngine)
+                       and t.path.startswith(str(tmp_path))
+                       for t in app.service.targets())
+        served = [app.server.fastpath_stats()[0]
+                  + app.server.fastpath_write_stats()[0] for app in storages]
+        assert sum(served) > 0, served
+    finally:
+        if stubs is not None:
+            stubs.close()
+        _stop_all(apps)
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.is_alive() and t.name != "hedge-runner"]
+    assert not left, f"threads left by the cluster: {left}"
+
+
 def test_storage_node_process_joins_serves_and_stops_on_sigterm(tmp_path):
     """A storage node from its entry point, in its own process."""
     mgmtd = MgmtdApp(["--node-id", "1", "--config.tick_interval_s=0.2"],
@@ -254,18 +323,78 @@ def _serving_app(flags):
 def _kv_app(flags):
     from tpu3fs_torch.bin.kv_main import KvApp
 
-    return KvApp(["--rpc", "native"] + flags, **CPU).init_server()
+    return KvApp(["--rpc", "native"] + flags, **CPU)
+
+
+def _echo_native_server(app):
+    """The app's server is the C++ transport: start it, echo through the
+    port's native client, stop it."""
+    from tpu3fs_torch.rpc.native_net import NativeRpcClient, NativeRpcServer
+
+    app.init_server()
+    assert isinstance(app.server, NativeRpcServer)
+    app.server.start()
+    client = NativeRpcClient()
+    try:
+        return client.call(app.server.address, CORE_SERVICE_ID, 1,
+                           EchoReq("native"), EchoRsp).text
+    finally:
+        client.close()
+        app.server.stop()
+
+
+def _native_target(tmp_path):
+    """A storage app on engine=native opens its targets as the JAX
+    package's app does: on the C++ engine under data_dir."""
+    from tpu3fs_torch.storage.native_engine import NativeChunkEngine
+    from tpu3fs_torch.storage.target import StorageTarget
+
+    app = StorageApp(["--config.engine=native",
+                      f"--config.data_dir={tmp_path}"], **CPU)
+    target = StorageTarget(1, 1, engine=app.config.get("engine"),
+                           path=app._target_path(1, 0), device=app.device)
+    try:
+        assert isinstance(target.engine, NativeChunkEngine)
+        target.engine.update(ChunkId(1, 0), 1, 1, b"native", 0,
+                             chunk_size=4096)
+        target.engine.commit(ChunkId(1, 0), 1, 1)
+        return target.engine.read(ChunkId(1, 0)).decode()
+    finally:
+        target.engine.close()
+
+
+def _native_stubs():
+    """StubFactory("native") hands out the C++ client; it talks to the
+    port's Python server."""
+    from tpu3fs_torch.rpc.native_net import NativeRpcClient
+    from tpu3fs_torch.rpc.net import RpcServer
+    from tpu3fs_torch.rpc.services import bind_core_service
+
+    server = RpcServer()
+    bind_core_service(server)
+    server.start()
+    stubs = StubFactory("native")
+    try:
+        assert isinstance(stubs.rpc_client(), NativeRpcClient)
+        return stubs.rpc_client().call(server.address, CORE_SERVICE_ID, 1,
+                                       EchoReq("native"), EchoRsp).text
+    finally:
+        stubs.rpc_client().close()
+        server.stop()
 
 
 @pytest.mark.parametrize("build,item", [
-    (lambda: MgmtdApp(["--rpc", "native"], **CPU).init_server(), "M6a-3"),
-    (lambda: StorageApp(["--config.engine=native"], **CPU), "M6a-3"),
-    (lambda: StubFactory("native"), "M6a-3"),
-    (lambda: _kv_app([]), "M6a-3"),
+    (lambda tmp: _echo_native_server(MgmtdApp(["--rpc", "native"], **CPU)),
+     "native"),
+    (_native_target, "native"),
+    (lambda tmp: _native_stubs(), "native"),
+    (lambda tmp: _echo_native_server(_kv_app([])), "native"),
 ], ids=["rpc-native", "engine-native", "stubs-native", "kv-rpc-native"])
-def test_unported_options_raise(build, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build()
+def test_unported_options_raise(build, item, tmp_path):
+    """The options that raised until the native paths were ported (the
+    C++ transport for an app, the C++ engine for a storage app, the
+    native stubs, kv_main's --rpc native) now build and serve."""
+    assert build(tmp_path) == item
 
 
 @pytest.mark.parametrize("build,key", [

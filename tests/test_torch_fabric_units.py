@@ -316,11 +316,33 @@ def test_file_client_prefetch_raises():
 @pytest.mark.parametrize("option, error, match", [
     (dict(chain_transport="ici"), NotImplementedError, "M8"),
     (dict(mesh=object()), NotImplementedError, "M8"),
-    (dict(engine="native"), ValueError, "mem engine"),
-])
-def test_fabric_refuses_unported_options(option, error, match):
-    with pytest.raises(error, match=match):
-        _cpu_fabric(**option)
+    (dict(engine="native"), None, "NativeChunkEngine"),
+], ids=["option0-NotImplementedError-M8", "option1-NotImplementedError-M8",
+        "option2-ValueError-mem engine"])
+def test_fabric_refuses_unported_options(option, error, match, tmp_path):
+    """The multi-card options raise; ``engine="native"``, which raised
+    until the C++ engine was ported, builds a fabric whose targets run
+    it, each in its own directory under ``engine_dir``, and a file goes
+    in and out."""
+    if error is not None:
+        with pytest.raises(error, match=match):
+            _cpu_fabric(**option)
+        return
+    fab = _cpu_fabric(**option, engine_dir=str(tmp_path))
+    try:
+        targets = [t for n in fab.nodes.values()
+                   for t in n.service.targets()]
+        assert {type(t.engine).__name__ for t in targets} == {match}
+        assert all(t.path.startswith(str(tmp_path)) for t in targets)
+        fab.meta.mkdirs("/n", recursive=True)
+        inode = fab.meta.create("/n/f").inode
+        fio = fab.file_client()
+        payload = bytes(range(256)) * 100
+        fio.write(inode, 0, payload)
+        assert fio.read(inode, 0, len(payload)) == payload
+    finally:
+        fab.close()
+    assert not list(tmp_path.iterdir())  # close removes the target dirs
 
 
 def test_fabric_resync_refuses_a_mesh():

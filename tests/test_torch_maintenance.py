@@ -2,17 +2,16 @@
 run over both packages (the JAX package's ``tpu3fs.storage.workers`` and
 ``tpu3fs.meta.scan`` and the port's copies): ``CheckWorker``'s disk probe,
 offlining and low-space flags, ``PunchHoleWorker`` and ``AllocateWorker``
-(cases of ``tests/test_workers.py`` on mem targets with a directory, as
-the port has only the mem engine); the namespace scans, the orphan check,
+(cases of ``tests/test_workers.py`` on mem targets with a directory, and
+its native-engine cases on the C++ engine of each package); the
+namespace scans, the orphan check,
 the usage stats and the meta event log (``tests/test_meta_scan.py``). Then
 one seeded cluster, an RS(4,2) and a CR fabric built the same way in both
 packages: ``DumpWorker``'s chunk records, the maintenance passes and the
 meta scans (inode and dirent records serialized, the event rows) must be
 equal. Tolerance 0.
 
-Left out: ``test_punch_hole_compacts_native_engine`` and the native-engine
-fixtures (the port has no native engine, ROADMAP M6a-3) and
-``TestMemoryMonitor`` (``monitor/memory`` moves to M6a-2)."""
+Left out: ``TestMemoryMonitor`` (``monitor/memory`` moves to M6a-2)."""
 
 import importlib
 import random
@@ -52,9 +51,9 @@ def pkg(request):
     return _pkg(request.param)
 
 
-def _single_service(pkg, tmp_path):
-    """One service over a hand-made routing: chain 7 of one mem target
-    (70) whose directory the check worker probes."""
+def _single_service(pkg, tmp_path, engine: str = "mem"):
+    """One service over a hand-made routing: chain 7 of one target (70)
+    on ``engine`` whose directory the check worker probes."""
     g = pkg.gtypes
     routing = g.RoutingInfo(version=1)
     routing.nodes[1] = g.NodeInfo(node_id=1, type=g.NodeType.STORAGE)
@@ -67,8 +66,8 @@ def _single_service(pkg, tmp_path):
                                   **pkg.dev)
     path = tmp_path / "t70"
     path.mkdir()
-    target = pkg.target.StorageTarget(70, 7, path=str(path), chunk_size=4096,
-                                      **pkg.dev)
+    target = pkg.target.StorageTarget(70, 7, engine=engine, path=str(path),
+                                      chunk_size=4096, **pkg.dev)
     svc.add_target(target)
     return svc, target
 
@@ -131,6 +130,51 @@ def test_punch_hole_and_allocate_workers(pkg, tmp_path):
     assert alloc.run_once() == 0
     target.emergency_recycling = True
     assert alloc.run_once() == 1
+
+
+def test_native_check_worker_cases(pkg, tmp_path):
+    """``tests/test_workers.py``'s CheckWorker cases on a native target:
+    a healthy disk serves, low space flags reject-create (new chunks
+    refused, resync and chain forwards still land), a vanished directory
+    offlines the target."""
+    svc, target = _single_service(pkg, tmp_path, "native")
+    assert type(target.engine).__name__ == "NativeChunkEngine"
+    w = pkg.workers.CheckWorker(svc)
+    assert w.run_once() == 0
+    assert target.local_state == pkg.gtypes.LocalTargetState.UPTODATE
+    assert target.space_info().capacity > 0
+    pkg.workers.CheckWorker(svc, reject_create_threshold=0.0,
+                            emergency_recycling_ratio=0.0).run_once()
+    assert target.reject_create and target.emergency_recycling
+    assert _write(pkg, svc, 5, b"x").code == pkg.result.Code.NO_SPACE
+    ChunkId, WriteReq = pkg.stypes.ChunkId, pkg.craq.WriteReq
+    assert svc.update(WriteReq(
+        chain_id=7, chain_ver=1, chunk_id=ChunkId(6, 0), offset=0,
+        data=b"r" * 4096, chunk_size=4096, full_replace=True, update_ver=1,
+        from_target=999)).ok
+    assert svc.update(WriteReq(
+        chain_id=7, chain_ver=1, chunk_id=ChunkId(6, 1), offset=0,
+        data=b"f" * 64, chunk_size=4096, update_ver=1, from_target=999)).ok
+    fired = []
+    w = pkg.workers.CheckWorker(svc,
+                                on_offline=lambda t: fired.append(t.target_id))
+    shutil.rmtree(target.path)
+    assert w.run_once() == 1 and fired == [70]
+    assert target.local_state == pkg.gtypes.LocalTargetState.OFFLINE
+    target.engine.close()
+
+
+def test_punch_hole_compacts_native_engine(pkg, tmp_path):
+    svc, target = _single_service(pkg, tmp_path, "native")
+    assert _write(pkg, svc, 9, b"y" * 4096).ok
+    assert target.engine.remove(pkg.stypes.ChunkId(9, 0))
+    assert pkg.workers.PunchHoleWorker(svc).run_once() == 1
+    assert target.engine.used_size() == 0
+    alloc = pkg.workers.AllocateWorker(svc)
+    assert alloc.run_once() == 0
+    target.emergency_recycling = True
+    assert alloc.run_once() == 1
+    target.engine.close()
 
 
 # -- meta scans --------------------------------------------------------------------

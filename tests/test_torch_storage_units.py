@@ -5,6 +5,7 @@ over one op sequence, ``engine_from_chunks`` loading a target the JAX
 package wrote, the planted ``chain_parity_skip`` bug caught by a degraded
 read, and the parts that are not ported raising. Tolerance 0."""
 
+import shutil
 import threading
 
 import numpy as np
@@ -217,9 +218,16 @@ def test_unported_parts_raise():
     svc = StorageService(10, lambda: None, device="cpu")
     with pytest.raises(NotImplementedError, match="M7/M8"):
         EcResyncWorker(svc, lambda *a: None, mesh=object(), device="cpu")
+    # the native engine, which raised until it was ported, opens (its
+    # directory made for it when none is given, as in the JAX package)
     for kind in ("native", "auto"):
-        with pytest.raises(ValueError, match="M6b"):
-            ttarget.StorageTarget(1, 1, engine=kind, device="cpu")
+        t = ttarget.StorageTarget(1, 1, engine=kind, device="cpu")
+        assert type(t.engine).__name__ == "NativeChunkEngine"
+        assert t.device == svc.device
+        t.engine.close()
+        shutil.rmtree(t.engine.path)
+    with pytest.raises(ValueError, match="unknown chunk engine"):
+        ttarget.StorageTarget(1, 1, engine="bogus", device="cpu")
     # a target on another device than its service's
     with pytest.raises(ValueError, match="service on cpu"):
         svc.add_target(ttarget.StorageTarget(1, 1, device="meta"))

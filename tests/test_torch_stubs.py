@@ -2,8 +2,8 @@
 (``client/{stubs,inmem}.py``): ``tests/test_stubs.py``'s cases, run over
 both packages (the port's ``StubFactory("inmem")`` and
 ``StorageClientInMem`` against the JAX package's), with equal replies,
-and the port's transports that are not there ("native", ROADMAP M6a-3)
-raising. The same consumer code (``FileIoClient``) runs on the double."""
+and the port's "native" transport handing out the C++ client. The same
+consumer code (``FileIoClient``) runs on the double."""
 
 import importlib
 
@@ -91,7 +91,24 @@ def test_unknown_transport_rejected(pkg):
 
 
 def test_port_native_transport_raises():
-    from tpu3fs_torch.client.stubs import StubFactory
+    """The native transport, which raised until it was ported, builds the
+    port's C++ client (as the JAX package's builds its own) and serves."""
+    from tpu3fs_torch.rpc.net import RpcServer
+    from tpu3fs_torch.rpc.services import bind_core_service
 
-    with pytest.raises(NotImplementedError, match="M6a-3"):
-        StubFactory(transport="native")
+    server = RpcServer()
+    bind_core_service(server)
+    server.start()
+    got = {}
+    try:
+        for pkg in PKGS:
+            stubs = mod(pkg, "client.stubs").StubFactory(transport="native")
+            client = stubs.rpc_client()
+            assert type(client) is mod(pkg, "rpc.native_net").NativeRpcClient
+            svc = mod(pkg, "rpc.services")
+            got[pkg] = client.call(server.address, svc.CORE_SERVICE_ID, 1,
+                                   svc.EchoReq("native"), svc.EchoRsp).text
+            stubs.close()
+    finally:
+        server.stop()
+    assert got == {pkg: "native" for pkg in PKGS}

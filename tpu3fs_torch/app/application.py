@@ -9,8 +9,7 @@ codecs there. ``join`` waits, with a bound, for a ``run_background`` app
 to finish stopping. A blocking ``run`` installs its SIGTERM handler
 before the server answers (the JAX package's after), so a SIGTERM that
 follows the first reply stops the app instead of killing the process.
-``--rpc native`` (the C++ transport) is not ported (ROADMAP M6a-3) and
-raises ``NotImplementedError``.
+``--rpc native`` serves on the C++ transport (``rpc/native_net``).
 
 Re-expresses the reference's app framework (src/common/app/ApplicationBase,
 TwoPhaseApplication.h:36-103, OnePhaseApplication.h, src/core/app/
@@ -191,13 +190,14 @@ class ApplicationBase:
 
     def init_server(self) -> None:
         port = int(self.flag("port", "0"))
-        # --rpc=native (the C++ epoll transport) is not ported
+        # --rpc=native runs the transport on the C++ epoll layer
+        # (hostsrc/rpc_net.cpp, wire-compatible); default stays python
         if self.flag("rpc", "python") == "native":
-            raise NotImplementedError(
-                "--rpc native (the C++ transport, rpc/native_net.py) is not "
-                "ported (ROADMAP M6a-3); the port serves over the Python "
-                "transport only")
-        self.server = RpcServer(self.info.hostname, port)
+            from tpu3fs_torch.rpc.native_net import NativeRpcServer
+
+            self.server = NativeRpcServer(self.info.hostname, port)
+        else:
+            self.server = RpcServer(self.info.hostname, port)
         self.info.port = self.server.port
         self._init_qos()
         self._init_tenants()

@@ -5,7 +5,7 @@ mgmtd persist through one transactional KV; src/fdb/). Serves the Kv RPC
 service (snapshot/get/getRange/commit/release) over the MVCC engine with an
 optional write-ahead log for restart durability:
 
-  python -m tpu3fs_torch.bin.kv_main --port 9500 [--wal /data/kv.wal]
+  python -m tpu3fs_torch.bin.kv_main --port 9500 [--wal /data/kv.wal] [--rpc native]
 
 or, as a member of a replicated group (kv/replica.py):
 
@@ -15,8 +15,7 @@ or, as a member of a replicated group (kv/replica.py):
 The port's own copy of ``tpu3fs/bin/kv_main.py``. ``KvApp`` takes a keyword
 ``device`` (else ``--device``, default ``cuda``) like every app of the port,
 but the kvd does no device work: it creates no CUDA context. ``--rpc
-native`` (the C++ transport) raises ``NotImplementedError`` (ROADMAP
-M6a-3). The WAL, the group's log and its snapshot have the JAX package's
+native`` serves on the C++ transport (``rpc/native_net``). The WAL, the group's log and its snapshot have the JAX package's
 bytes, so a kvd of either package replays the other's files.
 """
 

@@ -4,13 +4,15 @@ TwoPhaseApplication<StorageServer>).
 The port's own copy of ``tpu3fs/bin/storage_main.py``. ``StorageApp``
 takes a keyword ``device`` (else ``--device``, default ``cuda``): its
 ``StorageService``, every target it opens and its rebuild workers run
-there, so each chunk install's checksum (K2) and each EC rebuild's decode
-(K1, K3) is a kernel launch on the card. What differs from the JAX
-package:
+there, so each EC rebuild's decode (K1, K3) is a kernel launch on the
+card, and so is each chunk install's checksum (K2) on a mem target. The
+engine is the JAX package's default, ``auto``: the C++ chunk engine on
+disk (``storage/native_engine``, its CRCs computed on the host) under
+``data_dir`` when its library builds, else the mem engine with a WARN;
+``native`` and ``mem`` pick one outright. With ``--rpc native`` every
+target scan also syncs the C++ transport's read and write fast paths
+(``storage/native_fastpath``). What differs from the JAX package:
 
-- ``engine``: ``mem`` only; ``auto`` means ``mem``. ``native`` (the C++
-  engine and its read fast path) is ROADMAP M6a-3 and raises
-  ``NotImplementedError``.
 - a stop also joins the per-target update workers and closes the shm
   rings its own messengers opened to peer nodes.
 
@@ -60,9 +62,11 @@ from tpu3fs_torch.utils.logging import xlog
 
 
 class StorageAppConfig(Config):
-    # "auto" = mem in the port (the native C++ engine is not ported)
-    engine = ConfigItem("auto")         # auto | mem
-    data_dir = ConfigItem("")           # target dirs (retire trash-routes)
+    # "auto" = the native C++ engine when its .so builds (the flagship
+    # serving configuration), mem otherwise; explicit "native" refuses to
+    # start without the library
+    engine = ConfigItem("auto")         # auto | mem | native
+    data_dir = ConfigItem("")           # required for engine=native/auto
     chunk_size = ConfigItem(1 << 20)
     resync_interval_s = ConfigItem(5.0, hot=True)
     target_scan_interval_s = ConfigItem(5.0, hot=True)
@@ -111,18 +115,6 @@ class StorageApp(TwoPhaseApplication):
         self._trace = None
         self._usrbio_host = None
         self._messengers: List[RpcMessenger] = []
-        self._check_ported()
-
-    def _check_ported(self) -> None:
-        """The engine options the port serves (checked at construction
-        and again after mgmtd's config template lands)."""
-        engine = self.config.get("engine")
-        if engine == "native":
-            raise NotImplementedError(
-                "engine=native (the C++ chunk engine, storage/native_engine"
-                ".py) is not ported (ROADMAP M6a-3); use engine=mem")
-        if engine not in ("auto", "mem"):
-            raise ValueError(f"unknown chunk engine kind: {engine}")
 
     def default_config(self) -> Config:
         return StorageAppConfig()
@@ -136,7 +128,6 @@ class StorageApp(TwoPhaseApplication):
         return {STORAGE_SERVICE_ID}
 
     def build_services(self, server: RpcServer) -> None:
-        self._check_ported()
         messenger = self._messenger()
         self.service = StorageService(
             self.info.node_id, lambda: self.mgmtd_client.routing(), messenger,
@@ -255,7 +246,7 @@ class StorageApp(TwoPhaseApplication):
             target = StorageTarget(
                 info.target_id,
                 info.chain_id,
-                engine="mem",
+                engine=self.config.get("engine"),
                 path=self._target_path(info.target_id, info.disk_index),
                 chunk_size=self.config.get("chunk_size"),
                 device=self.device,
@@ -268,9 +259,19 @@ class StorageApp(TwoPhaseApplication):
                 target.local_state = LocalTargetState.ONLINE
             self.service.add_target(target)
             added += 1
-            xlog("INFO", "node %d opened target %d (chain %d, mem, %s)",
+            xlog("INFO", "node %d opened target %d (chain %d, %s, %s)",
                  self.info.node_id, info.target_id, info.chain_id,
-                 self.device)
+                 type(target.engine).__name__, self.device)
+        # refresh the native read fast path every scan (no-op on the
+        # python transport): registry entries track target/routing state
+        # with at most one scan interval of lag
+        try:
+            from tpu3fs_torch.storage.native_fastpath import (
+                sync_read_fastpath)
+
+            sync_read_fastpath(self.server, self.service)
+        except Exception:
+            pass
         return added
 
     def local_target_states(self) -> Dict[int, LocalTargetState]:

@@ -3,9 +3,7 @@ transport choice (the reference's stub/DI layer, src/stubs/: each service
 exposes a Stub interface plus factories producing real-RPC or mock
 implementations, and consumers take the factory, never a concrete stub).
 
-The port's own copy of ``tpu3fs/client/stubs.py``, with the "tcp" and
-"inmem" transports: "native" (the C++ transport, ROADMAP M6a-3) raises
-``NotImplementedError``.
+The port's own copy of ``tpu3fs/client/stubs.py``.
 Storage and file clients take the keywords of ``StorageClient``, among
 them ``device`` (default ``cuda``), where their stripe codec runs.
 
@@ -16,6 +14,7 @@ them ``device`` (default ``cuda``), where their stripe codec runs.
 
 Transports:
   "tcp"    — Python socket transport (rpc.net.RpcClient)
+  "native" — native epoll/writev transport (rpc.native_net.NativeRpcClient)
   "inmem"  — no cluster at all: StorageClientInMem + MemKV-backed MetaStore
              (unit-test doubles, ref StorageClientInMem.h / mgmtd mocks)
 
@@ -40,11 +39,7 @@ class StubFactory:
         connect_timeout: float = 5.0,
         call_timeout: float = 30.0,
     ):
-        if transport == "native":
-            raise NotImplementedError(
-                "transport='native' (rpc/native_net.py) is not ported "
-                "(ROADMAP M6a-3); use transport='tcp'")
-        if transport not in ("tcp", "inmem"):
+        if transport not in ("tcp", "native", "inmem"):
             raise FsError(Status(Code.INVALID_ARG,
                                  f"unknown transport {transport!r}"))
         self.transport = transport
@@ -62,9 +57,14 @@ class StubFactory:
             raise FsError(Status(Code.INVALID_ARG,
                                  "inmem stubs have no RPC client"))
         if self._rpc is None:
-            from tpu3fs_torch.rpc.net import RpcClient
+            if self.transport == "native":
+                from tpu3fs_torch.rpc.native_net import NativeRpcClient
 
-            self._rpc = RpcClient(*self._timeouts)
+                self._rpc = NativeRpcClient(*self._timeouts)
+            else:
+                from tpu3fs_torch.rpc.net import RpcClient
+
+                self._rpc = RpcClient(*self._timeouts)
         return self._rpc
 
     def _mgmtd(self):

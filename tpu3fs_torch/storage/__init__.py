@@ -1,8 +1,9 @@
 """The storage tier on one device: the port's own copies of
-``tpu3fs/storage/`` types, engine (mem only), target, update worker, CRAQ
-service, CR resync, EC rebuild and the maintenance workers (``workers``).
-``ici_chain`` (ROADMAP M8), ``native_engine`` and ``native_fastpath``
-(M6a-3) are not ported."""
+``tpu3fs/storage/`` types, engines (``engine``: mem; ``native_engine``:
+the C++ engine on disk), target, update worker, CRAQ service, CR resync,
+EC rebuild, the maintenance workers (``workers``) and the C++ transport's
+fast-path registries (``native_fastpath``). ``ici_chain`` (ROADMAP M8)
+is not ported."""
 
 from tpu3fs_torch.storage.types import ChunkId, ChunkMeta, UpdateType  # noqa: F401
 from tpu3fs_torch.storage.engine import MemChunkEngine, ChunkEngine  # noqa: F401

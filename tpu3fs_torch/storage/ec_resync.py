@@ -53,9 +53,13 @@ class EcResyncWorker:
         self._service = service
         self._messenger = messenger
         self._batch = batch_stripes
-        self._rebuilt_shards = CounterRecorder("ec.rebuild_shards")
-        self._rebuilt_bytes = CounterRecorder("ec.rebuild_bytes")
-        self._rebuild_mibps = ValueRecorder("ec.rebuild_mibps")
+        # tagged with the node (the JAX package's copy is untagged): the
+        # node that coordinated a rebuild is the one that decoded on its
+        # device
+        tags = {"node": str(service.node_id)}
+        self._rebuilt_shards = CounterRecorder("ec.rebuild_shards", tags)
+        self._rebuilt_bytes = CounterRecorder("ec.rebuild_bytes", tags)
+        self._rebuild_mibps = ValueRecorder("ec.rebuild_mibps", tags)
         # last completed rebuild round, for admin_cli ec-status and the
         # bench's source-spread verification: recovery reads per SOURCE
         # target prove the source-disjoint rotation actually spreads load

@@ -3,7 +3,7 @@
 The port's own copy of ``tpu3fs/storage/engine.py``. An engine holds a
 ``device``: every chunk checksum runs there (``Checksum.of``/``of_many``,
 kernel K2 on the card), and the batched stage's pooled checksums are one
-``crc32c_many`` call. Only the mem engine is ported.
+``crc32c_many`` call. The C++ engine on disk is ``native_engine``.
 
 Port of the *semantics* of the reference's Rust chunk engine
 (src/storage/chunk_engine/src/core/engine.rs:31-685): a chunk has a committed
@@ -15,6 +15,8 @@ committed content directly (the recovery path, design_notes "Data recovery").
 Engines are swappable behind StorageTarget (like the reference's
 only_chunk_engine switch, src/storage/store/StorageTarget.h:85-162):
   - MemChunkEngine: dict-backed, for tests and the single-process fabric.
+  - NativeChunkEngine (tpu3fs_torch.storage.native_engine): C++
+    group-allocator store via ctypes.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Recovery sender: chunkmeta diff + full-chunk-replace stream + sync-done.
 
-The port's own copy of ``tpu3fs/storage/resync.py``,
-unchanged but for its imports.
+The port's own copy of ``tpu3fs/storage/resync.py``, with two counters
+the JAX package's lacks: ``storage.resync_chunks`` and
+``storage.resync_bytes``, the chunks and bytes a round transferred (the
+EC rebuild's ``ec.rebuild_shards`` and ``ec.rebuild_bytes`` for CR).
 
 Re-expresses src/storage/sync/ResyncWorker.cc:101-460 and design_notes "Data
 recovery": for every chain where this node's target is SERVING and the next
@@ -30,8 +32,12 @@ class ResyncWorker:
     MAX_SHED_RETRIES = 4
 
     def __init__(self, service: StorageService, messenger: Messenger):
+        from tpu3fs_torch.monitor.recorder import CounterRecorder
+
         self._service = service
         self._messenger = messenger
+        self._moved_chunks = CounterRecorder("storage.resync_chunks")
+        self._moved_bytes = CounterRecorder("storage.resync_bytes")
 
     def run_once(self) -> int:
         """One resync round over all local chains. Returns chunks
@@ -118,6 +124,8 @@ class ResyncWorker:
             reply: UpdateReply = self._send_throttled(succ_node_id, req)
             if reply.code == Code.OK:
                 moved += 1
+                self._moved_chunks.add(1)
+                self._moved_bytes.add(len(content))
         # (d) drop successor chunks that no longer exist on the predecessor
         for meta in succ_metas:
             if meta.chunk_id not in local_ids:

@@ -24,9 +24,9 @@ tests drive worker iterations.
 
 The port's own copy of ``tpu3fs/storage/workers.py``, over the port's
 ``StorageService``. Its dumps go through the port's ``analytics/trace.py``
-(Parquet where ``pyarrow`` imports, NPZ otherwise); the port's targets are
-mem targets, so CheckWorker has no disk to probe and PunchHoleWorker no
-engine to compact.
+(Parquet where ``pyarrow`` imports, NPZ otherwise). CheckWorker probes
+a native target's disk through its ``space_info`` (statvfs), and
+PunchHoleWorker compacts native engines.
 """
 
 from __future__ import annotations
