@@ -226,7 +226,7 @@ Phases, in order (any failure exits non-zero):
      phase 16's loader at 1, 2 and 4 fetch workers (2 of phase 13's 4
      record files); the hf3fs_usrbio API
      (a UsrbioAgent in the script over each client, a UsrbioClient on
-     it): a 256 MiB file (cut from 1 GiB: RING_API_MIB) written and read
+     it): a 128 MiB file (cut from 1 GiB: RING_API_MIB) written and read
      in 1 MiB blocks at depth 32 in 2 turns on each client, then
      read with a second storage process killed, every block checked.
      Every data-plane call of the ring client rides a ring and every call
@@ -429,35 +429,11 @@ def bound_ms(nbytes: float, int8_ops: float):
 
 def counters() -> dict:
     """name -> (function, attribute) of every kernel wrapper's launch count,
-    and of the call counts of the kernels' plain versions."""
-    from tpu3fs_torch.ops.crc32c import (BatchCrc32c, crc32c_blocks,
-                                         crc32c_blocks_table)
-    from tpu3fs_torch.ops.gf2_matmul import (gf2_matmul, gf2_matmul_bitslice,
-                                             gf2_matmul_plain)
-    from tpu3fs_torch.ops.placement_score import score_batch, score_batch_plain
-    from tpu3fs_torch.ops.swap_score import (swap_apply, swap_apply_plain,
-                                             swap_score, swap_score_plain)
-    from tpu3fs_torch.ops.xor_fold import (xor_fold_crc, xor_fold_crc_atomic,
-                                           xor_fold_crc_plain)
-    from tpu3fs_torch.ops.xor_reduce import xor_reduce, xor_reduce_plain
+    and of the call counts of the kernels' plain versions
+    (``kernels.COUNTERS``)."""
+    from tpu3fs_torch import kernels
 
-    return {"gf2_matmul": (gf2_matmul, "launches"),
-            "gf2_matmul_bitslice": (gf2_matmul_bitslice, "launches"),
-            "gf2_matmul_plain": (gf2_matmul_plain, "calls"),
-            "crc32c_blocks": (crc32c_blocks, "launches"),
-            "crc32c_blocks_table": (crc32c_blocks_table, "launches"),
-            "crc32c_plain": (BatchCrc32c.compute, "calls"),
-            "xor_reduce": (xor_reduce, "launches"),
-            "xor_reduce_plain": (xor_reduce_plain, "calls"),
-            "xor_fold_crc": (xor_fold_crc, "launches"),
-            "xor_fold_crc_plain": (xor_fold_crc_plain, "calls"),
-            "xor_fold_crc_atomic": (xor_fold_crc_atomic, "launches"),
-            "score_batch": (score_batch, "launches"),
-            "score_batch_plain": (score_batch_plain, "calls"),
-            "swap_score": (swap_score, "launches"),
-            "swap_score_plain": (swap_score_plain, "calls"),
-            "swap_apply": (swap_apply, "launches"),
-            "swap_apply_plain": (swap_apply_plain, "calls")}
+    return kernels.counter_objects()
 
 
 def read_counts() -> dict:
@@ -511,9 +487,11 @@ def environment() -> str:
 
 
 def host_line() -> str:
-    """Whether /dev/fuse exists and opens, g++'s version, and the
-    filesystem of the run dir, where the storage processes keep their
-    data dirs, with the read path a native engine takes there."""
+    """Whether /dev/fuse exists and opens, g++'s version, the filesystem
+    of the run dir, where the storage processes keep their data dirs,
+    with the read path a native engine takes there, and what the mount
+    of phase 21 needs (``fuse_host``: libfuse.so.2, fusermount, the
+    uid)."""
     from tpu3fs_torch import hostbuild
     from tpu3fs_torch.storage.native_engine import FS_TYPES, fs_type, read_path
 
@@ -538,7 +516,8 @@ def host_line() -> str:
         t = fs_type(str(d))
         kinds[str(d)] = FS_TYPES.get(t, hex(t))
     return (f"{fuse}; {gxx}; filesystems {kinds} (the run dir first), "
-            f"native engine read path {read_path(str(RUN_DIR))}")
+            f"native engine read path {read_path(str(RUN_DIR))}; "
+            f"for the mount {json.dumps(fuse_host())}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -546,17 +525,22 @@ def build() -> None:
     from tpu3fs_torch import hostbuild, kernels
 
     t0 = phase("phase 2: build")
-    # g++ (the host libraries) beside nvcc (the kernels)
-    host = threading.Thread(target=lambda: [hostbuild.load(n) for n in
-                                            hostbuild.SOURCES])
+    # g++ (the host libraries and the loadgen) beside nvcc (the kernels)
+    host = threading.Thread(target=lambda: [
+        *(hostbuild.load(n) for n in hostbuild.SOURCES),
+        *(hostbuild.executable(n) for n in hostbuild.PROGRAMS)])
     host.start()
     kernels.library()
     log(f"kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
     host.join()
     for n in hostbuild.SOURCES:
         require(n in hostbuild._loaded, f"the host library {n} did not load")
+    for n in hostbuild.PROGRAMS:
+        require(hostbuild.library_path(n).exists(),
+                f"the host program {n} was not built")
     log(f"host libraries {[hostbuild.library_path(n).name for n in hostbuild.SOURCES]}"
-        f" built and loaded in {time.perf_counter() - t0:.2f} s")
+        f" and programs {[hostbuild.library_path(n).name for n in hostbuild.PROGRAMS]}"
+        f" built in {time.perf_counter() - t0:.2f} s")
     for line in kernels.build_log().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
@@ -5467,8 +5451,9 @@ RING_CHUNKS = 32               # usrbio_bench's batch: 32 chunks of 1 MiB
 # chunk, so a block costs more the longer the file (on an H100 machine a
 # 1 GiB pass took over 800 s); 2 turns on each client, not RING_TURNS:
 # 3 turns at 256 MiB took 122 s of the phase on the C++ engine, which
-# left the script over its 900 s
-RING_API_MIB, RING_API_DEPTH, RING_API_TURNS = 256, 32, 2
+# left the script over its 900 s; 128 MiB since phase 21 was added, for
+# the same limit
+RING_API_MIB, RING_API_DEPTH, RING_API_TURNS = 128, 32, 2
 RING_API_POOL = 64             # distinct 1 MiB source blocks of the API file
 # the loader's epochs read 2 of phase 13's 4 record files (2,048 of 4,096
 # records), for the script's time limit
@@ -6648,7 +6633,7 @@ def native_read_paths(ctl) -> dict:
             "s": time.perf_counter() - t0}
 
 
-def native(dev) -> dict:
+def native(dev, full=None, only_operator: bool = False) -> tuple:
     """Phase 20: the native paths. Phase 17 (b)'s cluster with every
     service on the C++ transport and the storage processes on the C++
     engine on disk (NativeProcesses), driven by a StubFactory("native")
@@ -6659,8 +6644,11 @@ def native(dev) -> dict:
     the resync moves only what was written while down), every engine CRC
     against K2 on the card, and, where io_uring is allowed, the io_uring
     and pread read paths chunk for chunk equal. K1 and K2
-    launch here as tensor-core kernels, no plain version. -> the
-    script's launches."""
+    launch here as tensor-core kernels, no plain version. With ``full``
+    (phase 13's data), phase 21 (``operator``) then runs on the same
+    processes before they stop; ``only_operator`` skips phase 20's own
+    requests. -> (phase 20's launches, phase 21's), None for a phase
+    not run."""
     import tempfile
 
     t_phase = phase("phase 20: the native paths")
@@ -6677,37 +6665,15 @@ def native(dev) -> dict:
             sides = {"native": NativeSide(ctl, dev, True),
                      "python": NativeSide(ctl, dev, False)}
             sock_warm(ctl, dev)
-            zero_counts()
-            t0 = time.perf_counter()
-            legs["bench"] = native_bench(sides, collector)
-            log(f"  bench {time.perf_counter() - t0:.1f} s: "
-                + json.dumps({k: v for k, v in legs["bench"].items()
-                              if k != "turns"}))
-            t0 = time.perf_counter()
-            legs["files"] = native_files(ctl, sides, dev, inputs, collector)
-            log(f"  files {time.perf_counter() - t0:.1f} s: "
-                + json.dumps(legs["files"]))
-            c0 = read_counts()
-            t0 = time.perf_counter()
-            legs["engine_crcs"] = native_engine_crcs(ctl, sides["native"],
-                                                     dev)
-            c1 = read_counts()
-            uncounted.update({k: c1[k] - c0[k] for k in c1})
-            log(f"  engine CRCs {time.perf_counter() - t0:.1f} s: "
-                + json.dumps(legs["engine_crcs"]))
-            counts = read_counts()
-            if dev.type == "cuda":
-                info["on_card"] = sock_on_card(ctl.pid_of("storage"),
-                                               ctl.device_files,
-                                               device_work_nodes(ctl))
-            info["calls"] = {n: {f"{t}:{m}": v for (t, m), v in
-                                 sorted(s.calls().items())}
-                             for n, s in sides.items()}
-            info["storage_processes"] = collector.settled()
-            info["boot_s"] = ctl.boot_s
+            counts, op = None, None
+            if not only_operator:
+                counts = native_requests(ctl, sides, dev, inputs, collector,
+                                         legs, info, uncounted)
+            if full is not None:
+                op = operator(ctl, sides, dev, inputs, collector, full)
             problems = ctl.close(keep_data=True)
             info["engines"] = ctl.engines
-            require(not problems, f"phase 20: {problems}")
+            require(not problems, f"phases 20-21: {problems}")
             t0 = time.perf_counter()
             legs["read_paths"] = native_read_paths(ctl)
             log(f"  read paths {time.perf_counter() - t0:.1f} s: "
@@ -6724,6 +6690,8 @@ def native(dev) -> dict:
             "still there")
     held = info["shm_cleanup"]["still_held"]
     require(not held, f"phase 20: /dev/shm still holds {held}")
+    if counts is None:
+        return None, op
     counts = {n: c - uncounted[n] for n, c in counts.items()}
     require_main_path("the native paths", counts,
                       ("gf2_matmul", "crc32c_blocks"))
@@ -6731,7 +6699,671 @@ def native(dev) -> dict:
                     "card": card_line(),
                     "seconds": time.perf_counter() - t_phase}, default=str))
     log(f"native: launches {counts} ({time.perf_counter() - t_phase:.1f} s)")
-    return {n: counts[n] for n in counters()}
+    return {n: counts[n] for n in counters()}, op
+
+
+def native_requests(ctl, sides: dict, dev, inputs: dict, collector,
+                    legs: dict, info: dict, uncounted) -> dict:
+    """Phase 20's requests on its processes: the bench in turns, /a with
+    the SIGKILL and the restart, the engine CRCs against K2, the on-card
+    check. -> the script's launch counts (the checks' in ``uncounted``)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    legs["bench"] = native_bench(sides, collector)
+    log(f"  bench {time.perf_counter() - t0:.1f} s: "
+        + json.dumps({k: v for k, v in legs["bench"].items()
+                      if k != "turns"}))
+    t0 = time.perf_counter()
+    legs["files"] = native_files(ctl, sides, dev, inputs, collector)
+    log(f"  files {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(legs["files"]))
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    legs["engine_crcs"] = native_engine_crcs(ctl, sides["native"],
+                                             dev)
+    c1 = read_counts()
+    uncounted.update({k: c1[k] - c0[k] for k in c1})
+    log(f"  engine CRCs {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(legs["engine_crcs"]))
+    counts = read_counts()
+    if dev.type == "cuda":
+        info["on_card"] = sock_on_card(ctl.pid_of("storage"),
+                                       ctl.device_files,
+                                       device_work_nodes(ctl))
+    info["calls"] = {n: {f"{t}:{m}": v for (t, m), v in
+                         sorted(s.calls().items())}
+                     for n, s in sides.items()}
+    info["storage_processes"] = collector.settled()
+    info["boot_s"] = ctl.boot_s
+    return counts
+
+
+# -- phase 21 ----------------------------------------------------------------
+# the operator's entry points on phase 20's processes: a FUSE mount
+# (bin/fuse_main), the foreign-process loadgen through it, admin_cli over
+# RpcFabricView, the GC and pack tools and the migration worker
+OP_FUSE_NODE, OP_MIG_NODE, OP_NEW_NODE = 401, 402, 105
+OP_PATCH = (MIB + 1000, MIB)   # the overwrite inside /a's second stripe
+OP_TAIL = MIB                  # bytes written past /a's end, then cut off
+# the loadgen at phase 19's API block and depth (1 MiB blocks, depth 32)
+# on a 64 MiB file, one pass
+OP_LOADGEN = ("64", "1024", "32", "1")
+OP_PLACE = dict(nodes=180, group_size=3, targets_per_node=16, steps=200)
+OP_PACK_FILES = 2              # of phase 13's 4 record files
+OP_KV_PAGES = 32               # of phase 12's 2 MiB pages
+OP_ATTN = ("q", "k", "v", "o")  # the layer's attention projections
+OP_WAIT_S = 180.0              # the bound on a mount, a GC or a migration
+
+
+def fuse_host() -> dict:
+    """What the mount needs from the host: whether ``libfuse.so.2`` loads,
+    where ``fusermount`` is, and the uid."""
+    import ctypes
+    import shutil
+
+    try:
+        ctypes.CDLL("libfuse.so.2")
+        lib = "loads"
+    except OSError as e:
+        lib = f"does not load ({e})"
+    return {"libfuse.so.2": lib, "fusermount": shutil.which("fusermount"),
+            "uid": os.getuid()}
+
+
+def mounted(path: Path) -> bool:
+    with open("/proc/mounts") as f:
+        return any(line.split()[1] == str(path) for line in f
+                   if len(line.split()) > 1)
+
+
+def op_env():
+    """Sockets only for the clients a binary's ``main`` builds in this
+    process (phase 20's processes host no rings; a messenger reads the
+    switch when it is built)."""
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"TPU3FS_USRBIO": "0"})
+
+
+def op_main(module: str, args: list) -> str:
+    """Run a binary's ``main`` (``tpu3fs_torch.<module>``) in this process
+    on the card, its stdout captured; it must return 0."""
+    import importlib
+    import io
+
+    main = importlib.import_module(f"tpu3fs_torch.{module}").main
+    buf = io.StringIO()
+    with op_env(), contextlib.redirect_stdout(buf):
+        rc = main(args)
+    require(rc == 0, f"{module} {args} returned {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def op_launches(ctl, node_id: int) -> dict:
+    """The kernel launches a process pushed to the collector
+    (``kernel.launches`` tagged with its node), once two reads
+    ``ctl.push_s`` apart agree."""
+    from tpu3fs_torch.monitor.collector import (COLLECTOR_SERVICE_ID,
+                                                AggQueryReq, AggQueryRsp)
+    from tpu3fs_torch.rpc.net import RpcClient
+
+    cli = RpcClient()
+
+    def read():
+        rsp = cli.call(ctl.mon_addr, COLLECTOR_SERVICE_ID, 3,
+                       AggQueryReq(name="kernel.launches",
+                                   tags={"node": str(node_id)},
+                                   window_s=3600.0), AggQueryRsp)
+        got = collections.Counter()
+        for row in rsp.rows:
+            got[row.tags["kernel"]] += int(row.vsum)
+        return {n: got[n] for n in counters()}
+
+    try:
+        prev, deadline = None, time.monotonic() + 60.0
+        while True:
+            time.sleep(2.5 * ctl.push_s)
+            cur = read()
+            if cur == prev:
+                return cur
+            require(time.monotonic() < deadline,
+                    f"node {node_id}'s launch counts never settled")
+            prev = cur
+    finally:
+        cli.close()
+
+
+class OpMount:
+    """``python -m tpu3fs_torch.bin.fuse_main --device cuda`` as a child of
+    phase 20's cluster, mounted at RUN_DIR/mnt-<pid>; ``close`` SIGTERMs
+    it, kills it on a timeout and detaches the mount in any case."""
+
+    def __init__(self, ctl):
+        self.ctl, self.child, self.refused = ctl, None, None
+        self.mnt = RUN_DIR / f"mnt-{os.getpid()}"
+        host = fuse_host()
+        if host["libfuse.so.2"] != "loads":
+            self.refused = f"libfuse.so.2 {host['libfuse.so.2']}"
+            return
+        self.mnt.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        ctl._start("fuse", "fuse_main", OP_FUSE_NODE, [
+            "--mgmtd=%s:%d" % ctl.maddr, "--heartbeat_interval", "0.5",
+            "--mountpoint", str(self.mnt), *ctl.push()])
+        self.child = ctl.procs[-1]
+        sock_wait(lambda: mounted(self.mnt)
+                  or self.child.proc.poll() is not None,
+                  "the FUSE process to mount", OP_WAIT_S)
+        if self.child.proc.poll() is not None:
+            text = self.child.log.read_text(errors="replace")
+            # the host refuses the mount: mount(2) (as root) or fusermount
+            # answered EPERM; anything else is a failure
+            if "Operation not permitted" in text or "EPERM" in text:
+                self.refused = "mount refused: EPERM: " + " ".join(
+                    line for line in text.splitlines()
+                    if "not permitted" in line)[:300]
+                ctl.procs.remove(self.child)  # its exit is expected
+                self.child = None
+                return
+            raise AssertionError(f"the FUSE process exited "
+                                 f"{self.child.proc.returncode}:\n"
+                                 + text[-3000:])
+        self.mount_s = time.perf_counter() - t0
+
+    def close(self) -> None:
+        from tpu3fs_torch.fuse.mount import lazy_unmount
+
+        import signal
+
+        try:
+            if self.child is not None and self.child.proc.poll() is None:
+                self.child.proc.send_signal(signal.SIGTERM)
+                try:
+                    self.child.proc.wait(SOCK_CHILD_STOP_S)
+                except subprocess.TimeoutExpired:
+                    self.child.proc.kill()
+                    self.child.proc.wait(SOCK_CHILD_STOP_S)
+        finally:
+            if self.mnt.exists():
+                lazy_unmount(str(self.mnt))
+                require(not mounted(self.mnt),
+                        f"{self.mnt} is still mounted")
+                self.mnt.rmdir()
+
+
+class MountFiles:
+    """Step 1's file calls through the kernel mount: plain ``open``,
+    ``write``, ``read``, ``rename`` and ``truncate`` under the mount
+    point, served by the FUSE process."""
+
+    def __init__(self, mnt: Path):
+        self.mnt = mnt
+
+    def mkdir(self, path: str) -> None:
+        os.mkdir(self.mnt / path.lstrip("/"))
+
+    def write(self, path: str, off: int, data: bytes,
+              create: bool = False) -> None:
+        with open(self.mnt / path.lstrip("/"), "wb" if create else "r+b") \
+                as f:
+            f.seek(off)
+            f.write(data)
+
+    def read(self, path: str) -> bytes:
+        with open(self.mnt / path.lstrip("/"), "rb") as f:
+            return f.read()
+
+    def rename(self, src: str, dst: str) -> None:
+        os.rename(self.mnt / src.lstrip("/"), self.mnt / dst.lstrip("/"))
+
+    def truncate(self, path: str, n: int) -> None:
+        os.truncate(self.mnt / path.lstrip("/"), n)
+
+    def size(self, path: str) -> int:
+        return os.path.getsize(self.mnt / path.lstrip("/"))
+
+
+class OpsFiles(MountFiles):
+    """The same calls on ``fuse.ops.FuseOps`` in this process, in the
+    pieces the kernel would send (128 KiB with ``big_writes``): the
+    operation table without the kernel mount, for a host that refuses
+    the mount."""
+
+    PIECE = 128 << 10
+
+    def __init__(self, side):
+        from tpu3fs_torch.fuse.ops import FuseOps
+
+        self.o = FuseOps(side.meta, side.fio)
+
+    def mkdir(self, path: str) -> None:
+        self.o.mkdir(path, 0o755)
+
+    def write(self, path: str, off: int, data: bytes,
+              create: bool = False) -> None:
+        o = self.o
+        fh = o.create(path, 0o644) if create else o.open(path, os.O_RDWR)
+        try:
+            for i in range(0, len(data), self.PIECE):
+                o.write(fh, off + i, data[i:i + self.PIECE])
+        finally:
+            o.release(fh)
+
+    def read(self, path: str) -> bytes:
+        o = self.o
+        fh = o.open(path, os.O_RDONLY)
+        try:
+            n = o.getattr(path).size
+            return b"".join(o.read(fh, i, min(self.PIECE, n - i))
+                            for i in range(0, n, self.PIECE))
+        finally:
+            o.release(fh)
+
+    def rename(self, src: str, dst: str) -> None:
+        self.o.rename(src, dst)
+
+    def truncate(self, path: str, n: int) -> None:
+        self.o.truncate(path, n)
+
+    def size(self, path: str) -> int:
+        return self.o.getattr(path).size
+
+
+def op_files(ctl, fs, inputs: dict) -> tuple:
+    """Step 1 with file calls (``fs``: through the kernel mount, or on the
+    operation table where the host refuses the mount): phase 17 (b)'s /a
+    written (as a part file with a tail, renamed, truncated to its
+    length) and read back; 1 MiB overwritten inside a stripe (K1 at
+    k = 1); the first storage node SIGKILLed and /a read degraded (K1
+    decodes: 4 shards a stripe are lost), then a new process on its own
+    data dir (the migration step reads /a again). Every byte equal to the
+    source. -> the rates, and /a's expected bytes."""
+    body = inputs["a"]
+    off, n = OP_PATCH
+    patch = np.random.default_rng(2121).integers(
+        0, 256, n, dtype=np.uint8).tobytes()
+    want = body[:off] + patch + body[off + n:]
+    mib, out = len(body) / MIB, {}
+    fs.mkdir("/op")
+    t0 = time.perf_counter()
+    fs.write("/op/a.part", 0, body + bytes(OP_TAIL), create=True)
+    out["write_MiB_s"] = (mib + OP_TAIL / MIB) / (time.perf_counter() - t0)
+    fs.rename("/op/a.part", "/op/a")
+    fs.truncate("/op/a", len(body))
+    require(fs.size("/op/a") == len(body), "/op/a's size after the "
+            "truncate")
+    t0 = time.perf_counter()
+    require(fs.read("/op/a") == body, "/op/a read back differs")
+    out["read_MiB_s"] = mib / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    fs.write("/op/a", off, patch)
+    out["overwrite_ms"] = (time.perf_counter() - t0) * 1e3
+    victim = SOCK_IDS[0]
+    ctl.fail(victim)
+    t0 = time.perf_counter()
+    require(fs.read("/op/a") == want, "/op/a read degraded differs")
+    out["degraded_MiB_s"] = mib / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ctl.restart(victim, keep_data=True)
+    sock_wait(lambda: sock_serving(ctl.admin.refresh_routing()),
+              "the restarted node's targets to serve")
+    out["restart_serving_s"] = time.perf_counter() - t0
+    return out, want
+
+
+def op_loadgen(mnt: OpMount) -> dict:
+    """Step 2: ``hostsrc/usrbio_loadgen.cpp`` built by ``hostbuild`` and
+    run as a foreign process through the mount (the ``3fs-virt`` symlink
+    handshake): its read verified, no ring or fd left registered."""
+    from tpu3fs_torch import hostbuild
+
+    t0 = time.perf_counter()
+    binary = hostbuild.executable("usrbio_loadgen")
+    build_s = time.perf_counter() - t0
+    run = subprocess.run([str(binary), str(mnt.mnt), *OP_LOADGEN],
+                         capture_output=True, text=True, timeout=OP_WAIT_S)
+    require(run.returncode == 0, f"usrbio_loadgen exited {run.returncode}:"
+            f" {run.stdout} {run.stderr}")
+    rows = {r["metric"]: r for r in map(json.loads,
+                                        run.stdout.strip().splitlines())}
+    require(rows["usrbio_loadgen_read"].get("verified") is True,
+            f"the loadgen's read is not verified: {rows}")
+    virt = mnt.mnt / "3fs-virt"
+    left = {k: os.listdir(virt / k) for k in ("iors", "fds")}
+    require(left == {"iors": [], "fds": []},
+            f"registrations left in 3fs-virt: {left}")
+    return {"build_s": build_s, "binary": binary.name,
+            "write_GiB_s": rows["usrbio_loadgen_write"]["value"],
+            "read_GiB_s": rows["usrbio_loadgen_read"]["value"],
+            "shape": dict(zip(("file_mib", "block_kib", "depth", "iters"),
+                              map(int, OP_LOADGEN)))}
+
+
+def op_chunks(side, routing, file_ids) -> int:
+    """Committed chunks of ``file_ids`` on every target of the cluster."""
+    n = 0
+    for tid, info in routing.targets.items():
+        if not info.chain_id:
+            continue
+        n += sum(1 for m in side.messenger(info.node_id, "dump_chunkmeta",
+                                           tid)
+                 if m.chunk_id.file_id in file_ids)
+    return n
+
+
+def op_admin(ctl, side, dev, full: dict, not_counted) -> dict:
+    """Step 3 from the binaries' own ``main``, in this process on the
+    card: admin_cli's list-chains and ``verify-checksums --data`` on the
+    EC chains (K2), place-CR-180 by ``solve-placement`` (K5) equal to
+    ``entry.gen_chain_table``; dataload_pack_main over 2 of phase 13's
+    record files and one loader batch equal to the records; the layer's
+    attention block saved on the CR chain, archived to EC(12,4) by
+    ckpt_gc_main and restored equal; 32 KV pages removed by
+    kvcache_gc_main and their chunks dropped by meta's GC."""
+    import tempfile
+
+    from tpu3fs_torch import entry
+    from tpu3fs_torch.ckpt import CheckpointManager
+    from tpu3fs_torch.dataload import DataLoader, LoaderConfig, PackedDataset
+    from tpu3fs_torch.kvcache.cache import KVCacheClient
+    from tpu3fs_torch.meta.types import Layout
+
+    connect = ["--device", dev.type, "--connect", "%s:%d" % ctl.maddr]
+    out = {}
+    t0 = time.perf_counter()
+    chains = op_main("cli", [*connect, "list-chains"])
+    require(all(str(c) in chains for c in (*SOCK_EC_CHAINS, SOCK_CR_CHAIN)),
+            f"list-chains: {chains}")
+    out["verify"] = {}
+    for chain in SOCK_EC_CHAINS:
+        got = op_main("cli", [*connect, "verify-checksums", "--data",
+                              "--chain", str(chain)]).strip()
+        m = re.fullmatch(r"read (\d+) chunks \((\d+) bytes\), 0 data "
+                         r"mismatches", got)
+        require(m, f"verify-checksums on chain {chain}: {got}")
+        out["verify"][chain] = {"chunks": int(m.group(1)),
+                                "bytes": int(m.group(2))}
+    require(sum(v["chunks"] for v in out["verify"].values()) > 0,
+            f"verify-checksums read no chunk: {out['verify']}")
+    out["verify_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = OP_PLACE
+    lines = op_main("cli", [
+        *connect, "solve-placement", "--nodes", str(p["nodes"]),
+        "--group-size", str(p["group_size"]), "--targets-per-node",
+        str(p["targets_per_node"]), "--steps", str(p["steps"])]
+    ).strip().splitlines()
+    out["placement_s"] = time.perf_counter() - t0
+    ref = not_counted(lambda: entry.gen_chain_table(
+        p["nodes"], p["group_size"], p["targets_per_node"],
+        steps=p["steps"], device=dev))
+    require(lines == ref, "solve-placement's commands differ from "
+            "entry.gen_chain_table's")
+    out["placement_lines"] = len(lines)
+
+    # dataload_pack_main: one sample file a record, from /dev/shm
+    per = full["records"] // full["files"]
+    records = full["host"][:per * OP_PACK_FILES]
+    with tempfile.TemporaryDirectory(dir="/dev/shm") as tmp:
+        for i, rec in enumerate(records):
+            Path(tmp, f"{i:05d}.rec").write_bytes(rec)
+        t0 = time.perf_counter()
+        got = op_main("bin.dataload_pack_main", [
+            *connect, "--out", "/op/tokens.rec", "--from-dir", tmp])
+        out["pack_s"] = time.perf_counter() - t0
+    require(got.startswith(f"packed {len(records)} records"),
+            f"dataload_pack_main: {got}")
+
+    def one_batch():
+        ds = PackedDataset(side.meta, side.fio, ["/op/tokens.rec"])
+        cfg = LoaderConfig(global_batch=full["batch"], seed=21,
+                           dtype="<i4", sample_shape=(SEQ_TOKENS,),
+                           depth=2, epochs=1)
+        with DataLoader(ds, cfg) as ld:
+            b = next(iter(ld))
+        want = np.stack([np.frombuffer(records[i], "<i4") for i in b.ids])
+        require(np.array_equal(np.asarray(b.data), want),
+                "the packed file's batch differs from the records")
+        return len(b.ids)
+
+    out["batch_records"] = not_counted(one_batch)
+    require_no_workers("phase 21's loader")
+
+    # the attention block on the CR chain, then ckpt_gc_main's archive
+    tree = {name: full["tree"][f"model.layers.0.self_attn.{name}_proj."
+                               "weight"] for name in OP_ATTN}
+    nbytes = sum(t.numel() * t.element_size() for t in tree.values())
+    norms = {n: full["tree"][f"model.layers.0.{n}.weight"]
+             for n in ("input_layernorm", "post_attention_layernorm")}
+    mgr = CheckpointManager(side.meta, side.fio, root="/op-ckpt",
+                            layout=Layout(table_id=2, chains=[SOCK_CR_CHAIN],
+                                          chunk_size=MIB, seed=1))
+    t0 = time.perf_counter()
+    mgr.save(tree, 1)
+    out["save_GiB_s"] = nbytes / (1 << 30) / (time.perf_counter() - t0)
+    mgr.save(norms, 2)  # the newest step, which --archive-after 1 keeps
+    t0 = time.perf_counter()
+    got = op_main("bin.ckpt_gc_main", [
+        *connect, "--root", "/op-ckpt", "--once", "--keep-last", "10",
+        "--archive-after", "1", "--archive-ec-k", str(K),
+        "--archive-ec-m", str(M), "--archive-chunk-size", str(MIB)])
+    out["archive_s"] = time.perf_counter() - t0
+    out["archive_GiB_s"] = nbytes / (1 << 30) / out["archive_s"]
+    require("archived=1 steps_left=2" in got, f"ckpt_gc_main: {got}")
+    for name in range(len(OP_ATTN)):
+        ino = side.meta.stat(f"/op-ckpt/1/l{name}.s0")
+        require(set(ino.layout.chains) <= set(SOCK_EC_CHAINS),
+                f"step 1 leaf {name} is not on the EC chains: "
+                f"{ino.layout.chains}")
+
+    def restore():
+        back = mgr.restore(1, like=tree)
+        for name, want in tree.items():
+            require(back[name].device == want.device
+                    and torch.equal(back[name], want),
+                    f"the archived {name}_proj differs after its restore")
+
+    not_counted(restore)
+    out["ckpt_MiB"] = nbytes / MIB
+
+    # 32 KV pages, then kvcache_gc_main --ttl 0 and meta's GC
+    pages, _ = kv_pages(dev)
+    kv = KVCacheClient(side.meta, side.fio, root="/op-kv")
+    for i in range(OP_KV_PAGES):
+        kv.put(f"page{i}", pages[i].tobytes())
+    ids = set()
+    todo = ["/op-kv"]
+    while todo:
+        d = todo.pop()
+        for e in side.meta.list_dir(d):
+            if e.type.name == "DIRECTORY":
+                todo.append(f"{d}/{e.name}")
+            else:
+                ids.add(e.inode_id)
+    require(len(ids) == OP_KV_PAGES, f"{len(ids)} KV entries, not "
+            f"{OP_KV_PAGES}")
+    routing = ctl.admin.refresh_routing()
+    before = op_chunks(side, routing, ids)
+    t0 = time.perf_counter()
+    got = op_main("bin.kvcache_gc_main", [
+        *connect, "--root", "/op-kv", "--once", "--ttl", "0"])
+    require(f"ttl_removed={OP_KV_PAGES}" in got, f"kvcache_gc_main: {got}")
+    sock_wait(lambda: op_chunks(side, ctl.admin.refresh_routing(), ids)
+              == 0, "meta's GC to drop the KV pages' chunks", OP_WAIT_S)
+    out["kv_gc"] = {"entries": len(ids), "chunks_before": before,
+                    "s": time.perf_counter() - t0}
+    return out
+
+
+def op_quorum(routing) -> list:
+    """Chains below their quorum: a CR chain with fewer serving members
+    than its three, an EC chain with fewer than k + m - 1 (one slot is
+    rebuilt at a time)."""
+    bad = []
+    for chain in routing.chains.values():
+        serving = sum(t.public_state.name == "SERVING" for t in chain.targets)
+        need = chain.ec_k + chain.ec_m - 1 if chain.is_ec else 3
+        if serving < need:
+            bad.append((chain.chain_id, serving))
+    return bad
+
+
+def op_start_migration(ctl) -> None:
+    """Step 4's processes, started at the phase's start so that they reach
+    the card while steps 1-3 run: a fifth storage process on an empty
+    engine (it holds no target until a move) and ``migration_main`` (its
+    auto re-plan waits for an operator's job)."""
+    ctl._storage(OP_NEW_NODE)
+    ctl._start("migration", "migration_main", OP_MIG_NODE, [
+        "--mgmtd=%s:%d" % ctl.maddr, "--heartbeat_interval", "0.5",
+        "--config.poll_interval_s=0.2", *ctl.push()])
+
+
+def op_migration(ctl, side, dev, collector, files: dict) -> dict:
+    """Step 4: with ``op_start_migration``'s processes registered,
+    ``admin_cli rebalance --apply`` plans the moves onto the fifth node
+    and the worker runs them, the quorum checked all along; then every
+    file reads back equal."""
+    from tpu3fs_torch.migration import JobPhase
+
+    connect = ["--device", dev.type, "--connect", "%s:%d" % ctl.maddr]
+    ctl.registered(OP_NEW_NODE)
+    ctl.registered(OP_MIG_NODE)
+    c0 = collector.settled()
+    t0 = time.perf_counter()
+    plan = op_main("cli", [*connect, "rebalance", "--apply"])
+    require("submitted jobs" in plan, f"rebalance --apply: {plan}")
+    worst = []
+
+    def settled():
+        routing = ctl.admin.refresh_routing()
+        worst.extend(op_quorum(routing))
+        jobs = ctl.admin.migration_list()
+        return jobs and all(not j.active for j in jobs) \
+            and sock_serving(routing)
+
+    deadline = time.monotonic() + OP_WAIT_S
+    while not settled():
+        require(time.monotonic() < deadline, "the migration jobs did not "
+                f"settle: {op_main('cli', [*connect, 'migrate-status'])}")
+        time.sleep(0.1)
+    dt = time.perf_counter() - t0
+    require(not worst, f"a chain fell below its quorum: {worst[:5]}")
+    jobs = ctl.admin.migration_list()
+    require(all(JobPhase(j.phase) == JobPhase.DONE for j in jobs),
+            f"jobs not done: {[(j.job_id, j.phase) for j in jobs]}")
+    routing = ctl.admin.refresh_routing()
+    on_new = [tid for tid, t in routing.targets.items()
+              if t.node_id == OP_NEW_NODE and t.chain_id]
+    require(len(on_new) == len(jobs), f"node {OP_NEW_NODE} holds {on_new}"
+            f" after {len(jobs)} moves")
+    moved = delta(collector.settled(), c0)
+    direct = sum(j.copied_chunks for j in jobs)
+    copied = sum(j.copied_bytes for j in jobs)
+    total = copied + moved["ec.rebuild_bytes"]
+    for path, want in files.items():
+        inode = side.meta.stat(path)
+        require(side.fio.read(inode, 0, inode.length) == want,
+                f"{path} differs after the migration")
+    return {"jobs": [(j.job_id, j.chain_id, j.out_target, j.new_target,
+                      j.dst_node, JobPhase(j.phase).name, j.copied_chunks,
+                      j.copied_bytes) for j in jobs],
+            "plan": plan.strip().splitlines(), "s": dt,
+            "direct_copies": direct, "direct_bytes": copied,
+            "decodes": moved["ec.rebuild_shards"],
+            "decode_bytes": moved["ec.rebuild_bytes"],
+            "bytes_moved": total, "MiB_s": total / MIB / dt,
+            "status": op_main("cli", [*connect, "migrate-status"]).strip()}
+
+
+def operator(ctl, sides: dict, dev, inputs: dict, collector,
+             full: dict) -> dict:
+    """Phase 21 on phase 20's processes (their turns done, before they
+    stop): the mount and the loadgen, the admin CLI and the tools, the
+    migration. The script's own launches (the tools' ``main`` in this
+    process) are counted from 0 over the steps, the checks' launches
+    taken out; the FUSE process's are read from its pushes to the
+    collector. -> launches by kernel (the script's plus the FUSE
+    process's)."""
+    t_phase = phase("phase 21: the operator's entry points")
+    log(f"  host for the mount: {json.dumps(fuse_host())}")
+    side = sides["native"]
+    uncounted, legs, info = collections.Counter(), {}, {}
+
+    def not_counted(fn):
+        c0 = read_counts()
+        got = fn()
+        c1 = read_counts()
+        uncounted.update({k: c1[k] - c0[k] for k in c1})
+        return got
+
+    zero_counts()
+    op_start_migration(ctl)
+    mnt = OpMount(ctl)
+    files = {}
+    try:
+        if mnt.refused:
+            log(f"  mount and loadgen legs absent: the host refuses the "
+                f"mount: {mnt.refused}")
+            info["refused"] = mnt.refused
+            t0 = time.perf_counter()
+            legs["ops"], files["/op/a"] = op_files(ctl, OpsFiles(side),
+                                                   inputs)
+            log(f"  no kernel mount: step 1 on the operation table in "
+                f"this process {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["ops"]))
+        else:
+            log(f"  mounted at {mnt.mnt} in {mnt.mount_s:.1f} s")
+            t0 = time.perf_counter()
+            legs["mount"], files["/op/a"] = op_files(
+                ctl, MountFiles(mnt.mnt), inputs)
+            log(f"  mount {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["mount"]))
+            t0 = time.perf_counter()
+            legs["loadgen"] = op_loadgen(mnt)
+            log(f"  loadgen {time.perf_counter() - t0:.1f} s: "
+                + json.dumps(legs["loadgen"]))
+        t0 = time.perf_counter()
+        legs["admin"] = op_admin(ctl, side, dev, full, not_counted)
+        log(f"  admin and tools {time.perf_counter() - t0:.1f} s: "
+            + json.dumps(legs["admin"], default=str))
+        packed = side.meta.stat("/op/tokens.rec")
+        files["/op/tokens.rec"] = not_counted(
+            lambda: side.fio.read(packed, 0, packed.length))
+        t0 = time.perf_counter()
+        legs["migration"] = not_counted(lambda: op_migration(
+            ctl, side, dev, collector, files))
+        log(f"  migration {time.perf_counter() - t0:.1f} s: "
+            + json.dumps(legs["migration"], default=str))
+        if not mnt.refused:
+            info["fuse_launches"] = op_launches(ctl, OP_FUSE_NODE)
+            if dev.type == "cuda":
+                info["fuse_on_card"] = sock_on_card([mnt.child.proc.pid])
+    finally:
+        mnt.close()
+    script = read_counts()
+    if not mnt.refused:
+        require(mnt.child.proc.returncode == 0, "the FUSE process exited "
+                f"{mnt.child.proc.returncode} on SIGTERM")
+    if not mnt.refused and dev.type == "cuda":
+        fl = info["fuse_launches"]
+        for name in ("gf2_matmul", "crc32c_blocks"):
+            require(fl[name] > 0, f"the FUSE process launched no {name}")
+        for name in ("gf2_matmul_plain", "crc32c_plain", "xor_reduce_plain",
+                     "gf2_matmul_bitslice", "crc32c_blocks_table"):
+            require(fl[name] == 0, f"the FUSE process ran {name}")
+    counts = {n: script[n] - uncounted[n] for n in script}
+    require_main_path("the operator's entry points", counts,
+                      ("gf2_matmul", "crc32c_blocks", "swap_score",
+                       "swap_apply"))
+    launches = {n: counts[n] + info.get("fuse_launches", {}).get(n, 0)
+                for n in counts}
+    log(json.dumps({"operator": legs, "info": info, "launches": launches,
+                    "script_launches": counts, "card": card_line(),
+                    "seconds": time.perf_counter() - t_phase}, default=str))
+    log(f"operator: launches {launches} "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    return launches
 
 
 def main() -> int:
@@ -6780,6 +7412,9 @@ def main() -> int:
     if sys.argv[1:] == ["--native"]:
         native(dev)
         return 0
+    if sys.argv[1:] == ["--operator"]:
+        native(dev, train_data(dev, TRAIN_FULL), only_operator=True)
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -6803,9 +7438,10 @@ def main() -> int:
     paths["sockets"] = sockets(dev, train_full)
     paths["fleet"] = fleet(dev)
     paths["rings"] = rings(dev, train_full)
-    paths["native"] = native(dev)
+    paths["native"], paths["operator"] = native(dev, train_full)
     for row in kernels:
-        for path in ("fetch", "sockets", "fleet", "rings", "native"):
+        for path in ("fetch", "sockets", "fleet", "rings", "native",
+                     "operator"):
             row["launches_by_path"][path] = paths[path][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)

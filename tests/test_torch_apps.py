@@ -390,7 +390,7 @@ def _native_stubs():
     (lambda tmp: _native_stubs(), "native"),
     (lambda tmp: _echo_native_server(_kv_app([])), "native"),
 ], ids=["rpc-native", "engine-native", "stubs-native", "kv-rpc-native"])
-def test_unported_options_raise(build, item, tmp_path):
+def test_native_options_build_and_serve(build, item, tmp_path):
     """The options that raised until the native paths were ported (the
     C++ transport for an app, the C++ engine for a storage app, the
     native stubs, kv_main's --rpc native) now build and serve."""

@@ -318,8 +318,9 @@ def test_file_client_prefetch_raises():
     (dict(mesh=object()), NotImplementedError, "M8"),
     (dict(engine="native"), None, "NativeChunkEngine"),
 ], ids=["option0-NotImplementedError-M8", "option1-NotImplementedError-M8",
-        "option2-ValueError-mem engine"])
-def test_fabric_refuses_unported_options(option, error, match, tmp_path):
+        "option2-native-engine-serves"])
+def test_fabric_multicard_options_raise_native_engine_serves(option, error, match,
+                                                            tmp_path):
     """The multi-card options raise; ``engine="native"``, which raised
     until the C++ engine was ported, builds a fabric whose targets run
     it, each in its own directory under ``engine_dir``, and a file goes

@@ -151,7 +151,12 @@ def test_import_transport_apps_and_binaries_touches_no_cuda():
             "tpu3fs_torch.bin.mgmtd_main, tpu3fs_torch.bin.storage_main, "
             "tpu3fs_torch.bin.meta_main, tpu3fs_torch.client.stubs, "
             "tpu3fs_torch.monitor.collector, tpu3fs_torch.core, "
-            "tpu3fs_torch.metashard; "
+            "tpu3fs_torch.metashard, tpu3fs_torch.bin.fuse_main, "
+            "tpu3fs_torch.bin.migration_main, tpu3fs_torch.bin.ckpt_gc_main, "
+            "tpu3fs_torch.bin.dataload_pack_main, "
+            "tpu3fs_torch.bin.kvcache_gc_main, tpu3fs_torch.cli, "
+            "tpu3fs_torch.fuse, tpu3fs_torch.fuse.mount, "
+            "tpu3fs_torch.migration, tpu3fs_torch.hostbuild; "
             "print(torch.cuda.is_initialized(), 'triton' in sys.modules, "
             "tpu3fs_torch.kernels.library.cache_info().currsize)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -316,3 +321,38 @@ def test_ring_hosting_apps_default_to_the_card(module, cls):
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         app_cls([])
+
+
+
+@pytest.mark.parametrize("module,cls", [
+    ("tpu3fs_torch.bin.fuse_main", "FuseApp"),
+    ("tpu3fs_torch.bin.migration_main", "MigrationApp")],
+    ids=["fuse", "migration"])
+def test_operator_apps_default_to_the_card(module, cls):
+    """The FUSE daemon and the migration worker resolve their device to
+    the card unless asked otherwise (keyword or ``--device``), and raise
+    without one."""
+    import importlib
+
+    app_cls = getattr(importlib.import_module(module), cls)
+    assert app_cls([], device="cpu").device.type == "cpu"
+    assert app_cls(["--device", "cpu"]).device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app_cls([])
+
+
+@pytest.mark.parametrize("module", ["ckpt_gc_main", "dataload_pack_main",
+                                    "kvcache_gc_main"])
+def test_operator_tools_take_a_device_defaulting_to_the_card(module):
+    """Every tool parses ``--device`` (default: none given, so the card)
+    and hands it to ``RpcFabricView``."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(f"tpu3fs_torch.bin.{module}")
+    extra = ["--out", "/x"] if module == "dataload_pack_main" else []
+    assert mod.parse_args(extra).device is None
+    assert mod.parse_args(extra + ["--device", "cpu"]).device == "cpu"
+    assert "device=args.device" in inspect.getsource(mod.main)

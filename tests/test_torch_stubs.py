@@ -90,7 +90,7 @@ def test_unknown_transport_rejected(pkg):
         mod(pkg, "client.stubs").StubFactory(transport="quic")
 
 
-def test_port_native_transport_raises():
+def test_port_native_transport_builds_and_serves():
     """The native transport, which raised until it was ported, builds the
     port's C++ client (as the JAX package's builds its own) and serves."""
     from tpu3fs_torch.rpc.net import RpcServer

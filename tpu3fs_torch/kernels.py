@@ -184,3 +184,85 @@ def check(rc: int, name: str) -> None:
     if rc:
         what = library().tpu3fs_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {what} ({rc})")
+
+
+#: every kernel wrapper's launch counter and every plain version's call
+#: counter: name -> (module, dotted object, attribute)
+COUNTERS = {
+    "gf2_matmul": ("tpu3fs_torch.ops.gf2_matmul", "gf2_matmul", "launches"),
+    "gf2_matmul_bitslice": ("tpu3fs_torch.ops.gf2_matmul",
+                            "gf2_matmul_bitslice", "launches"),
+    "gf2_matmul_plain": ("tpu3fs_torch.ops.gf2_matmul", "gf2_matmul_plain",
+                         "calls"),
+    "crc32c_blocks": ("tpu3fs_torch.ops.crc32c", "crc32c_blocks",
+                      "launches"),
+    "crc32c_blocks_table": ("tpu3fs_torch.ops.crc32c", "crc32c_blocks_table",
+                            "launches"),
+    "crc32c_plain": ("tpu3fs_torch.ops.crc32c", "BatchCrc32c.compute",
+                     "calls"),
+    "xor_reduce": ("tpu3fs_torch.ops.xor_reduce", "xor_reduce", "launches"),
+    "xor_reduce_plain": ("tpu3fs_torch.ops.xor_reduce", "xor_reduce_plain",
+                         "calls"),
+    "xor_fold_crc": ("tpu3fs_torch.ops.xor_fold", "xor_fold_crc",
+                     "launches"),
+    "xor_fold_crc_plain": ("tpu3fs_torch.ops.xor_fold", "xor_fold_crc_plain",
+                           "calls"),
+    "xor_fold_crc_atomic": ("tpu3fs_torch.ops.xor_fold",
+                            "xor_fold_crc_atomic", "launches"),
+    "score_batch": ("tpu3fs_torch.ops.placement_score", "score_batch",
+                    "launches"),
+    "score_batch_plain": ("tpu3fs_torch.ops.placement_score",
+                          "score_batch_plain", "calls"),
+    "swap_score": ("tpu3fs_torch.ops.swap_score", "swap_score", "launches"),
+    "swap_score_plain": ("tpu3fs_torch.ops.swap_score", "swap_score_plain",
+                         "calls"),
+    "swap_apply": ("tpu3fs_torch.ops.swap_score", "swap_apply", "launches"),
+    "swap_apply_plain": ("tpu3fs_torch.ops.swap_score", "swap_apply_plain",
+                         "calls"),
+}
+
+
+def counter_objects() -> dict:
+    """name -> (object, attribute) of each of ``COUNTERS``: where its count
+    lives, to read or to set to 0."""
+    import importlib
+
+    out = {}
+    for name, (module, path, attr) in COUNTERS.items():
+        obj = importlib.import_module(module)
+        for part in path.split("."):
+            obj = getattr(obj, part)
+        out[name] = (obj, attr)
+    return out
+
+
+def counts() -> dict:
+    """name -> the current value of each of ``COUNTERS``."""
+    return {n: getattr(o, a) for n, (o, a) in counter_objects().items()}
+
+
+def launch_recorder(tags=None):
+    """A monitor recorder of this process's kernel launches: each
+    collection reports, as ``kernel.launches`` tagged ``kernel=<name>``
+    (and ``tags``),
+    how much each of ``COUNTERS`` grew since the one before (nothing for a
+    counter that did not). A service that pushes samples to the collector
+    so shows which kernels its requests launched. The caller keeps the
+    recorder alive (the monitor holds it weakly)."""
+    from tpu3fs_torch.monitor.recorder import Sample, _Recorder
+
+    class LaunchRecorder(_Recorder):
+        def __init__(self):
+            super().__init__("kernel.launches", tags)
+            self._last = counts()
+
+        def collect(self, now: float):
+            with self._lock:
+                cur = counts()
+                grew = {n: cur[n] - self._last.get(n, 0) for n in cur}
+                self._last = cur
+            return [Sample(self.name, now, {**self.tags, "kernel": n},
+                           value=float(v), count=int(v))
+                    for n, v in sorted(grew.items()) if v > 0]
+
+    return LaunchRecorder()

@@ -21,8 +21,9 @@ GC remove-op IOPS), grown into a serving subsystem:
 All IO rides the ``kvcache`` QoS class (foreground-weighted,
 share-bounded). docs/kvcache.md has the contracts; the port writes the
 JAX package's entries byte for byte, and ``get_blocks(device="cuda")``
-copies blocks to the card. The admin CLI's kvcache commands, the GC
-daemon and the benchmark are not ported yet (ROADMAP.md).
+copies blocks to the card. The admin CLI's kvcache commands
+(``cli.py``) and the GC daemon (``bin/kvcache_gc_main.py``) drive
+``KVCacheGC``; the benchmark is not ported yet (ROADMAP.md).
 """
 
 from tpu3fs_torch.kvcache.blocks import (  # noqa: F401

@@ -122,8 +122,7 @@ class KVCacheClient:
     def _charge_resident(self, nbytes: int) -> None:
         """Per-tenant kvcache resident-bytes estimate (tpu3fs_torch/tenant):
         incremental from the writer; the GC daemon's scans set the
-        authoritative figure (the JAX package's bin/kvcache_gc_main.py;
-        not ported yet)."""
+        authoritative figure (bin/kvcache_gc_main.py)."""
         from tpu3fs_torch.tenant.identity import current_tenant
         from tpu3fs_torch.tenant.quota import registry
 
