@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the tpu3fs_torch data plane, chain-table placement, storage tier,
 serving stack, KV-cache tier, checkpoints, data loading, concurrent fetch,
-readahead, the trace sink, the services over sockets and the USRBIO
-shared-memory rings on one CUDA card.
+readahead, the trace sink, the services over sockets, the USRBIO
+shared-memory rings, the native paths, the operator's entry points, the
+chaos search, the thousand-node scale fabric and the template service on
+one CUDA card.
 
 Run from the repository root, with one card:
 
@@ -261,7 +263,35 @@ Phases, in order (any failure exits non-zero):
      the pread paths, chunk for chunk equal. Every target of every storage process (17
      (b)-20) must be on the C++ engine (the processes' logs name each
      target's engine), and the data dirs are gone after each phase.
-Phases 7-14 and 16-20 are the main path: every kernel count is set to 0
+ 21. the operator's entry points (operator; on phase 20's processes,
+     its launches under "operator"): a FUSE mount and usrbio_loadgen
+     through it, the admin CLI and the GC and pack tools, the migration
+     service (``--operator`` runs the build, phase 20's processes and
+     it alone);
+ 22. the chaos search, the scale fabric and simple_example (chaos_scale;
+     after phase 21, the two legs' launches under "chaos" and "scale"):
+     (a) the six corpus files of tests/chaos_seeds/ through replay_seed
+     on the card, each clean (every checker green, the file's expect
+     checkers passed, so its sidecar ran) and with its bug armed (its
+     expect checkers violated); search_violations over
+     tests/test_chaos.py's SMALL spec at seeds 100-102, green; with
+     commit_skip armed from seed 0 within 16 seeds, found, shrunk by
+     shrink_schedule to a minimal prefix that violates armed and not
+     disarmed; three corpus schedules through FabricRunner, every oracle
+     CRC taken on the card (K2) held against crc32c_py; one line a run:
+     wall seconds, events applied and skipped, checker statuses, K1, K2
+     and K3 launches; (b) ScaleFabric(ScaleConfig(num_nodes=1000,
+     num_domains=10), device): boot, a heartbeat round (mean and p99 us),
+     the tick sweep, the routing fan-out cold (polled by 100 nodes of a
+     100-node fabric, cut from 1,000 for the time limit; all 1,000 with
+     --chaos) and warm (bytes, seconds),
+     the KV bounded over 3 more rounds, a whole-domain kill breaking no
+     chain, restart and resync; the domain-blind A/B at 30 nodes in 3
+     domains (blind must break chains); plan_rebalance at 10,000 chains;
+     the SLO aggregation at 1,000 series; (c) python -m
+     tpu3fs_torch.simple_example.service --device cuda answers a write
+     and a read over the port's RpcClient and exits 0 on SIGTERM.
+Phases 7-14, 16-21 and 22 (a) and (b) are the main path: every kernel count is set to 0
 just before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
@@ -273,7 +303,7 @@ runs phase 13 alone, with its traced run; ``--fetch`` builds them and
 runs phase 16 alone, with its traced run; ``--sockets`` builds them and
 runs phase 17 alone; ``--fleet`` builds them and runs phase 18 alone;
 ``--rings`` builds them and runs phase 19 alone; ``--native`` builds them
-and runs phase 20 alone.
+and runs phase 20 alone; ``--chaos`` builds them and runs phase 22 alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -7366,6 +7396,376 @@ def operator(ctl, sides: dict, dev, inputs: dict, collector,
     return launches
 
 
+# -- phase 22 ----------------------------------------------------------------
+# tests/test_chaos.py's SMALL spec: the clean search and the planted hunt
+CHAOS_SMALL = dict(steps=20, events=6, storage_nodes=3, num_chains=2,
+                   num_replicas=2)
+CHAOS_CLEAN = (100, 3)         # (base seed, seeds): must stay green
+CHAOS_HUNT = (0, 16)           # (base seed, seed budget): commit_skip found
+CHAOS_KERNELS = ("gf2_matmul", "crc32c_blocks", "xor_reduce")
+# corpus seeds whose oracle CRCs are held against crc32c_py, by workload
+CHAOS_SAMPLE = ("commit_skip_chain_ack.json", "chain_parity_skip_hop.json",
+                "peer_fill_stale_serve_through.json")
+# scale_bench's bench_size at the thousand-node day (tests/test_scale.py)
+SCALE_NODES, SCALE_DOMAINS = 1000, 10
+# pollers of the cold routing fan-out in the whole script, cut from 1,000
+# for its time limit (each cold poll serialises the whole snapshot on the
+# host: 26-30 s for 1,000 on the card's host); --chaos polls all 1,000
+SCALE_COLD_NODES = 100
+SCALE_AB = (30, 3)             # the domain-blind A/B (scale_bench)
+SCALE_REBALANCE_CHAINS = 10_000
+SCALE_SLO_SERIES = 1000
+SIMPLE_WAIT_S = 60.0           # the simple_example process's first reply
+
+
+def chaos_launches(c0: dict, c1: dict) -> dict:
+    """K1's, K2's and K3's launches between two reads of the counts."""
+    return {n: c1[n] - c0[n] for n in CHAOS_KERNELS}
+
+
+def chaos_row(label: str, report, secs: float, launches: dict) -> dict:
+    """One run's line: wall seconds, events, checker statuses, launches."""
+    row = {"run": label, "seconds": secs,
+           "applied": report.events_applied,
+           "skipped": report.events_skipped, "writes": report.writes,
+           "acked": report.acked, "reads": report.reads,
+           "statuses": {o.checker: o.status for o in report.outcomes},
+           "violated": report.violated_checkers, "launches": launches}
+    log(json.dumps({"chaos_run": row}))
+    return row
+
+
+def chaos_sample(dev, path: str) -> dict:
+    """One corpus schedule through ``FabricRunner`` on ``dev`` (clean):
+    every CRC its oracle took on the card is held against crc32c_py of the
+    payload it stands for, the workload's and the serving sidecar's."""
+    from tpu3fs_torch.chaos.schedule import Schedule
+    from tpu3fs_torch.chaos.search import PAYLOAD_LEN, FabricRunner
+    from tpu3fs_torch.ops.crc32c import crc32c_py
+
+    with open(path) as f:
+        sched = Schedule.from_json(json.dumps(json.load(f)["schedule"]))
+    runner = FabricRunner(sched, device=dev)
+    report = runner.run()
+    require(not report.violated, f"{path} clean through FabricRunner: "
+            + report.summary())
+    want = {crc32c_py(f"w{t:06d}".encode().ljust(PAYLOAD_LEN, b"."))
+            for t in range(1, runner.tag + 1)}
+    sent = set().union(*runner.sent.values())
+    require(sent == want, f"{path}: the oracle's CRCs on {dev} differ from "
+            "crc32c_py")
+    require(set().union(*runner.oracle.values()) - {None} <= want,
+            f"{path}: an admissible CRC is no payload's")
+    crcs = len(sent)
+    if runner._serving is not None:
+        for key, admissible, _ in runner._serving["reads"]:
+            n = int(key.rsplit("-", 1)[1])  # the sidecar's round
+            payload = f"kv{n:06d}".encode().ljust(64, b"#")
+            require(admissible == {crc32c_py(payload)},
+                    f"{path}: serving read {key}'s CRC differs from crc32c_py")
+            crcs += 1
+    return {"crcs": crcs, "writes": report.writes}
+
+
+def chaos(dev) -> dict:
+    """Phase 22 (a): the six corpus seeds through ``replay_seed`` on the
+    card, clean (every checker green) and with the bug armed (the file's
+    ``expect`` checkers violated); the clean search and the planted
+    ``commit_skip`` hunt with its shrink; the oracle's CRCs of three
+    seeds held against crc32c_py. -> launches by kernel."""
+    from tpu3fs_torch.chaos import bugs
+    from tpu3fs_torch.chaos.schedule import ScheduleSpec
+    from tpu3fs_torch.chaos.search import (
+        load_corpus,
+        replay_seed,
+        run_schedule,
+        search_violations,
+        shrink_schedule,
+    )
+
+    t_leg = time.perf_counter()
+    rows = []
+
+    def timed(fn):
+        """-> (fn(), its wall seconds, its K1, K2 and K3 launches)."""
+        c0, t0 = read_counts(), time.perf_counter()
+        got = fn()
+        secs, c1 = time.perf_counter() - t0, read_counts()
+        return got, secs, chaos_launches(c0, c1)
+
+    zero_counts()
+    corpus = load_corpus()
+    require(len(corpus) == 6, f"the corpus holds {len(corpus)} seeds, not 6")
+    for path in corpus:
+        name = os.path.basename(path)
+        for with_bug in (False, True):
+            (report, obj), secs, launches = timed(
+                lambda: replay_seed(path, with_bug=with_bug, device=dev))
+            label = f"{name} {'armed' if with_bug else 'clean'}"
+            rows.append(chaos_row(label, report, secs, launches))
+            if with_bug:
+                require(set(obj["expect"]) <= set(report.violated_checkers),
+                        f"{label}: {obj['bug']} not caught:\n"
+                        + report.summary())
+            else:
+                require(not report.violated, f"{label} violates:\n"
+                        + report.summary())
+                statuses = rows[-1]["statuses"]
+                for checker in obj["expect"]:
+                    require(statuses[checker] == "passed",
+                            f"{label}: {checker} {statuses[checker]}, not "
+                            "passed (its sidecar did not run)")
+    spec = ScheduleSpec(**CHAOS_SMALL)
+    base, seeds = CHAOS_CLEAN
+    (found, tried), secs, launches = timed(lambda: (
+        search_violations(spec, base_seed=base, max_seeds=seeds,
+                          device=dev)))
+    require(found is None and tried == seeds,
+            f"the clean search found a violation:\n"
+            + (found.summary() if found else ""))
+    rows.append({"run": f"search clean seeds {base}-{base + seeds - 1}",
+                 "seconds": secs, "tried": tried, "launches": launches})
+    log(json.dumps({"chaos_run": rows[-1]}))
+    base, budget = CHAOS_HUNT
+    bugs.arm("commit_skip")
+    try:
+        (found, tried), secs, launches = timed(lambda: (
+            search_violations(spec, base_seed=base, max_seeds=budget,
+                              device=dev)))
+        require(found is not None, f"commit_skip not found in {budget} seeds")
+        require({"replica_versions", "crc_oracle"}
+                & set(found.violated_checkers),
+                "the hunt's verdict names neither replica_versions nor "
+                "crc_oracle:\n" + found.summary())
+        rows.append(chaos_row(f"hunt commit_skip seed {found.schedule.seed} "
+                              f"({tried} tried)", found, secs, launches))
+        (shrunk, replays), secs, launches = timed(lambda: (
+            shrink_schedule(found.schedule, device=dev)))
+        again = run_schedule(shrunk, device=dev)
+        require(again.violated, "the shrunk schedule no longer violates")
+        if shrunk.events:
+            require(not run_schedule(shrunk.prefix(len(shrunk.events) - 1),
+                                     device=dev).violated,
+                    "the shrunk schedule is not minimal")
+    finally:
+        bugs.disarm()
+    fixed = run_schedule(shrunk, device=dev)
+    require(not fixed.violated, "the shrunk schedule violates with "
+            "commit_skip disarmed:\n" + fixed.summary())
+    rows.append({"run": "shrink", "seconds": secs, "replays": replays,
+                 "events": f"{len(found.schedule.events)} -> "
+                           f"{len(shrunk.events)}", "launches": launches})
+    log(json.dumps({"chaos_run": rows[-1]}))
+    sample = {}
+    for name in CHAOS_SAMPLE:
+        path = next(p for p in corpus if os.path.basename(p) == name)
+        sample[name] = chaos_sample(dev, path)
+    counts = read_counts()
+    require_main_path("the chaos search", counts,
+                      ("gf2_matmul", "crc32c_blocks"))
+    log(json.dumps({"chaos": {
+        "runs": len(rows), "crc_sample": sample,
+        "launches": {n: counts[n] for n in CHAOS_KERNELS},
+        "seconds": time.perf_counter() - t_leg, "card": card_line()}}))
+    return counts
+
+
+def pct(sorted_vals: list, q: float) -> float:
+    """scale_bench's percentile: the value at rank q of the sorted list."""
+    return sorted_vals[min(int(q * len(sorted_vals)), len(sorted_vals) - 1)]
+
+
+def scale(dev, cold_nodes: int) -> dict:
+    """Phase 22 (b): the thousand-node day and scale_bench's bench_size on
+    ``ScaleFabric(..., device=dev)``; the domain-blind A/B, the rebalance
+    plan at 10,000 chains and the SLO aggregation; the cold routing
+    fan-out polled by ``cold_nodes`` nodes (of a fabric that size). ->
+    launches by kernel (the boot's placement: with solver_steps=0 none is
+    required)."""
+    from tpu3fs_torch.monitor.agg import WindowedAggregator
+    from tpu3fs_torch.monitor.recorder import Sample
+    from tpu3fs_torch.monitor.slo import SloEngine
+    from tpu3fs_torch.placement.rebalance import TopologyDelta, plan_rebalance
+    from tpu3fs_torch.scale import ScaleConfig, ScaleFabric
+
+    t_leg = time.perf_counter()
+    zero_counts()
+    out = {}
+    sf = ScaleFabric(ScaleConfig(num_nodes=SCALE_NODES,
+                                 num_domains=SCALE_DOMAINS), device=dev)
+    require(len(sf.chain_ids) == SCALE_NODES, "not one chain a node")
+    require(sf.domain_violations() == [], "the aware table breaks domains")
+    lat = sorted(sf.heartbeat_round())
+    require(len(lat) == SCALE_NODES, "a node did not beat")
+    out["boot_s"] = sf.boot_s
+    out["heartbeat"] = {"round_s": sum(lat),
+                        "mean_us": sum(lat) / len(lat) * 1e6,
+                        "p99_us": pct(lat, 0.99) * 1e6}
+    t0 = time.perf_counter()
+    sf.tick()
+    out["tick_sweep_s"] = time.perf_counter() - t0
+    cold_sf = sf if cold_nodes == SCALE_NODES else ScaleFabric(
+        ScaleConfig(num_nodes=cold_nodes, num_domains=SCALE_DOMAINS),
+        device=dev)
+    cold_b, cold_s = cold_sf.routing_fanout(up_to_date=False)
+    warm_b, warm_s = sf.routing_fanout(up_to_date=True)
+    require(warm_b * 10 * cold_nodes < cold_b * SCALE_NODES,
+            "the warm fan-out is not the fast reply")
+    out["fanout"] = {"cold_nodes": cold_nodes, "cold_bytes": cold_b,
+                     "cold_s": cold_s, "warm_nodes": SCALE_NODES,
+                     "warm_bytes": warm_b, "warm_s": warm_s}
+    f1 = sf.kv_footprint()
+    for _ in range(3):
+        sf.heartbeat_round()
+    f4 = sf.kv_footprint()
+    require(f4["keys"] == f1["keys"]
+            and f4["history"] <= f1["history"] * 1.5 + 64,
+            f"the KV grows under heartbeats: {f1} -> {f4}")
+    out["kv"] = {"after_1": f1, "after_4": f4}
+    t0 = time.perf_counter()
+    killed = sf.kill_domain("d0")
+    kill_s = time.perf_counter() - t0
+    q = sf.quorum_report()
+    require(len(killed) == SCALE_NODES // SCALE_DOMAINS, "d0's size")
+    require(q == {"ok": SCALE_NODES, "broken": 0},
+            f"the whole-domain kill broke chains: {q}")
+    sf.restart_domain("d0")
+    require(sf.quorum_report()["broken"] == 0, "the restart broke chains")
+    sf.complete_resync("d0")
+    require(sf.quorum_report() == q, "the resync left chains short")
+    out["domain_kill"] = {"killed": len(killed), "cycle_s": kill_s, **q}
+    ab = {}
+    for label, aware in (("aware", True), ("blind", False)):
+        n, d = SCALE_AB
+        small = ScaleFabric(ScaleConfig(num_nodes=n, num_domains=d,
+                                        domain_aware=aware), device=dev)
+        violations = len(small.domain_violations())
+        small.kill_domain("d0")
+        ab[label] = {"violations": violations, **small.quorum_report()}
+    require(ab["aware"]["broken"] == 0 and ab["blind"]["broken"] > 0,
+            f"the domain A/B: {ab}")
+    out["domain_ab"] = ab
+    big = ScaleFabric(ScaleConfig(
+        num_nodes=SCALE_NODES, num_domains=SCALE_DOMAINS,
+        targets_per_node=SCALE_REBALANCE_CHAINS * 3 // SCALE_NODES),
+        device=dev)
+    require(len(big.chain_ids) == SCALE_REBALANCE_CHAINS, "rebalance chains")
+    routing = big.mgmtd.get_routing_info(-1)
+    t0 = time.perf_counter()
+    plan = plan_rebalance(routing, TopologyDelta(dead=[sorted(big.nodes)[0]]))
+    out["rebalance"] = {"chains": len(big.chain_ids), "boot_s": big.boot_s,
+                        "plan_s": time.perf_counter() - t0,
+                        "moves": len(plan.moves),
+                        "deferred": len(plan.deferred_chains),
+                        "lambda_after": plan.after.lambda_max}
+    require(plan.moves, "the rebalance plan moves nothing off the dead node")
+    agg = WindowedAggregator(bucket_s=1.0, slots=60,
+                             max_series=2 * SCALE_SLO_SERIES + 16)
+    engine = SloEngine(agg)
+    engine.configure("rule=hb_p99,metric=scale.hb,agg=p99,max=100")
+    now = time.time()
+    t0 = time.perf_counter()
+    for w in range(5):
+        agg.ingest([Sample(name="scale.hb", ts=now + w, tags={"node": str(i)},
+                           count=8, min=1.0, max=20.0, mean=5.0, p50=4.0,
+                           p90=9.0, p99=15.0)
+                    for i in range(SCALE_SLO_SERIES)])
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verdicts = engine.evaluate(now + 5)
+    out["slo"] = {"series": SCALE_SLO_SERIES, "windows": 5,
+                  "ingest_s": ingest_s,
+                  "evaluate_s": time.perf_counter() - t0,
+                  "rules_ok": all(v.state != "firing"
+                                  for v in verdicts.values())}
+    require(out["slo"]["rules_ok"], "the SLO rule fires at p99 15 < 100")
+    counts = read_counts()
+    require_main_path("the scale fabric", counts, ())
+    out["launches"] = {n: c for n, c in counts.items() if c}
+    out["seconds"] = time.perf_counter() - t_leg
+    log(json.dumps({"scale": out, "card": card_line()}))
+    return counts
+
+
+def simple_example(dev) -> dict:
+    """Phase 22 (c): ``python -m tpu3fs_torch.simple_example.service
+    --device <dev>`` answers a write and a read over the port's
+    ``RpcClient`` and exits 0 on SIGTERM, its log free of tracebacks."""
+    import signal
+    import tempfile
+
+    from tpu3fs_torch.rpc.net import RpcClient
+    from tpu3fs_torch.simple_example.service import (
+        SIMPLE_EXAMPLE_SERVICE_ID,
+        SimpleReadReq,
+        SimpleReadRsp,
+        SimpleWriteReq,
+        SimpleWriteRsp,
+    )
+    from tpu3fs_torch.utils.result import FsError
+
+    t0 = time.perf_counter()
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        logf = Path(tmp) / "simple_example.log"
+        with open(logf, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "tpu3fs_torch.simple_example.service",
+                 "--port", str(port), "--device", dev.type],
+                stdout=out, stderr=subprocess.STDOUT)
+        rpc = RpcClient()
+        try:
+            addr = ("127.0.0.1", port)
+            deadline = time.monotonic() + SIMPLE_WAIT_S
+            while True:
+                try:
+                    wrote = rpc.call(addr, SIMPLE_EXAMPLE_SERVICE_ID, 1,
+                                     SimpleWriteReq("smoke", "hello"),
+                                     SimpleWriteRsp)
+                    break
+                except (FsError, OSError):
+                    require(proc.poll() is None, "simple_example exited: "
+                            + logf.read_text())
+                    require(time.monotonic() < deadline, "simple_example "
+                            f"gave no reply in {SIMPLE_WAIT_S} s")
+                    time.sleep(0.1)
+            first_s = time.perf_counter() - t0
+            read = rpc.call(addr, SIMPLE_EXAMPLE_SERVICE_ID, 2,
+                            SimpleReadReq("smoke"), SimpleReadRsp)
+            require(wrote == SimpleWriteRsp(stored=1)
+                    and read == SimpleReadRsp(True, "hello"),
+                    f"simple_example replied {wrote}, {read}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=SOCK_CHILD_STOP_S)
+        finally:
+            rpc.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(SOCK_CHILD_STOP_S)
+        text = logf.read_text()
+    require(rc == 0, f"simple_example exited {rc} on SIGTERM")
+    require("Traceback" not in text, text)
+    got = {"first_reply_s": first_s, "exit": rc,
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps({"simple_example": got}))
+    return got
+
+
+def chaos_scale(dev, cold_nodes: int = SCALE_COLD_NODES) -> tuple:
+    """Phase 22: the chaos search, the scale fabric and simple_example.
+    -> (the chaos leg's launches, the scale leg's)."""
+    t0 = phase("phase 22: the chaos search, the scale fabric and "
+               "simple_example")
+    chaos_counts = chaos(dev)
+    scale_counts = scale(dev, cold_nodes)
+    simple_example(dev)
+    zero = dict.fromkeys(CHAOS_KERNELS, 0)
+    log(f"chaos and scale: launches {chaos_launches(zero, chaos_counts)} "
+        f"and {chaos_launches(zero, scale_counts)} "
+        f"({time.perf_counter() - t0:.1f} s, {card_line()})")
+    return chaos_counts, scale_counts
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
@@ -7415,6 +7815,9 @@ def main() -> int:
     if sys.argv[1:] == ["--operator"]:
         native(dev, train_data(dev, TRAIN_FULL), only_operator=True)
         return 0
+    if sys.argv[1:] == ["--chaos"]:
+        chaos_scale(dev, cold_nodes=SCALE_NODES)
+        return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
     check_k1(dev, cmps["K1"])
@@ -7439,9 +7842,10 @@ def main() -> int:
     paths["fleet"] = fleet(dev)
     paths["rings"] = rings(dev, train_full)
     paths["native"], paths["operator"] = native(dev, train_full)
+    paths["chaos"], paths["scale"] = chaos_scale(dev)
     for row in kernels:
         for path in ("fetch", "sockets", "fleet", "rings", "native",
-                     "operator"):
+                     "operator", "chaos", "scale"):
             row["launches_by_path"][path] = paths[path][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)

@@ -356,3 +356,36 @@ def test_operator_tools_take_a_device_defaulting_to_the_card(module):
     assert mod.parse_args(extra).device is None
     assert mod.parse_args(extra + ["--device", "cpu"]).device == "cpu"
     assert "device=args.device" in inspect.getsource(mod.main)
+
+def test_import_chaos_scale_and_simple_example_touches_no_cuda():
+    """``chaos.bugs`` (read on the storage hot paths) pulls in no fabric;
+    the chaos search, the scale fabric and the template service import
+    without touching CUDA or triton or loading the JAX package."""
+    code = ("import sys, torch, tpu3fs_torch.chaos, tpu3fs_torch.chaos.bugs; "
+            "lean = 'tpu3fs_torch.fabric' not in sys.modules; "
+            "import tpu3fs_torch.chaos.search, tpu3fs_torch.chaos.invariants, "
+            "tpu3fs_torch.scale, tpu3fs_torch.simple_example; "
+            "from tpu3fs_torch.chaos import FabricRunner, replay_seed; "
+            "print(lean, torch.cuda.is_initialized(), 'triton' in sys.modules, "
+            "any(m == 'jax' or m == 'tpu3fs' or m.startswith(('jax.', "
+            "'tpu3fs.')) for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["True", "False", "False", "False"]
+
+
+def test_chaos_and_scale_entry_points_default_to_the_card():
+    from tpu3fs_torch.chaos.schedule import Schedule, ScheduleSpec
+    from tpu3fs_torch.chaos.search import FabricRunner
+    from tpu3fs_torch.scale import ScaleConfig, ScaleFabric
+
+    sched = Schedule(0, ScheduleSpec(steps=1, events=0), [])
+    assert FabricRunner(sched, device="cpu").device.type == "cpu"
+    small = ScaleConfig(num_nodes=6, num_domains=3)
+    assert ScaleFabric(small, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FabricRunner(sched)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ScaleFabric(small)
