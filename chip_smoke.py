@@ -3,8 +3,9 @@
 serving stack, KV-cache tier, checkpoints, data loading, concurrent fetch,
 readahead, the trace sink, the services over sockets, the USRBIO
 shared-memory rings, the native paths, the operator's entry points, the
-chaos search, the thousand-node scale fabric and the template service on
-one CUDA card.
+chaos search, the thousand-node scale fabric, the template service, the
+ICI chain transport, the EC mesh rebuild and the multi-rank checkpoint
+save on one CUDA card.
 
 Run from the repository root, with one card:
 
@@ -178,7 +179,7 @@ Phases, in order (any failure exits non-zero):
      mapped kernel library, read before a SIGKILL for a killed one;
      nvidia-smi's count where it sees another pid namespace), then
      phase 16's records, epochs at 1,
-     2, 4, 4, 2, 1 workers and 1 MiB reads with readahead off and on,
+     2 and 4 workers and 1 MiB reads with readahead off and on,
      healthy and with a second process killed; every child stopped by
      SIGTERM within 10 s, exit codes and logs checked. Host ms and
      launches of each request; write, read, degraded-read and rebuild
@@ -195,7 +196,7 @@ Phases, in order (any failure exits non-zero):
      by a ServingPeerClient over rings) at phase 12's Llama-3.1-8B pages:
      61's write-through servingLoad put leg, the host's put of A, 61's
      storage fills of A, B's 192-page prefix peer-filled from 61 in
-     16-page peerReads and put on the card by get_blocks, in 3 rotated
+     16-page peerReads and put on the card by get_blocks, in 2 rotated
      turns over the ring peer client and a socket-only one (every
      peerRead of a turn on its transport), B's own pages put from the
      host, single-flight (K
@@ -216,7 +217,7 @@ Phases, in order (any failure exits non-zero):
      processes on usrbio=1 (their own messengers ride rings to each
      other) and a monitor_main they push their samples to; a ring client
      (TPU3FS_USRBIO=1) and a socket client (0) over the same processes,
-     every request on both in 3 rotated turns, medians and ring/socket
+     every request on both in one turn (ring first), ring/socket
      ratios: usrbio_bench's batch_write and batch_read of 32 x 1 MiB on
      the CR chain and 32 single write_chunk and read_chunk calls; phase
      17's /a (48 RS(12,4) stripes of 1 MiB) written and read, a storage
@@ -229,7 +230,7 @@ Phases, in order (any failure exits non-zero):
      record files); the hf3fs_usrbio API
      (a UsrbioAgent in the script over each client, a UsrbioClient on
      it): a 128 MiB file (cut from 1 GiB: RING_API_MIB) written and read
-     in 1 MiB blocks at depth 32 in 2 turns on each client, then
+     in 1 MiB blocks at depth 32 in 1 turn on each client, then
      read with a second storage process killed, every block checked.
      Every data-plane call of the ring client rides a ring and every call
      of the socket client a socket; the storage processes that launched
@@ -291,7 +292,30 @@ Phases, in order (any failure exits non-zero):
      the SLO aggregation at 1,000 series; (c) python -m
      tpu3fs_torch.simple_example.service --device cuda answers a write
      and a read over the port's RpcClient and exits 0 on SIGTERM.
-Phases 7-14, 16-21 and 22 (a) and (b) are the main path: every kernel count is set to 0
+ 23. the ICI chain transport and the EC mesh rebuild (mesh; after phase
+     22, the legs' launches under "ici" and "mesh_rebuild") and the
+     multi-rank save (on phase 20's processes after phase 21, its
+     launches under "mesh_save"): (a) an in-process Fabric(cfg, device)
+     with chain_transport="ici" on make_storage_mesh(3, devices=[cuda] *
+     3), two CR chains of 3 on one node: 64 chunks of 1 MiB in one
+     batch_write and 32 partial overwrites, replies and committed state
+     (bytes, versions, CRCs a target) equal to a messenger fabric's on
+     the same writes, an ICI hit on every batch, K4 (the hop's
+     cross-check) and K2 (the successors' installs) launched; a mesh
+     whose chain axis (2) differs from the chains' width falls back on
+     every batch; write MiB/s of both transports in turns; (b) RS(12,4)
+     at phase 11's shape (48 stripes of 1 MiB, 4 nodes, 2 chains) and
+     RS(3,1) (16 stripes): the first node failed, its engines emptied,
+     the node back and resync_all(mesh=make_storage_mesh(k + m,
+     devices=[cuda] * (k + m))): every rebuilt chunk equal to its
+     original and the stored state to a meshless resync's, K1 launched
+     at RS(12,4), K3 at RS(3,1); rebuild MiB/s of both routes; (c) 4 rank
+     processes on a gloo group (cuda DTensors on a (2, 2) cuda mesh)
+     save phase 13's Llama-3.1-8B decoder layer through the C++
+     transport, rank 0 commits; each rank's K2 launches pushed to the
+     collector; the manifest's boxes and CRCs checked and a verified
+     restore in the script equal to the layer byte for byte.
+Phases 7-14, 16-21, 22 (a) and (b) and 23 are the main path: every kernel count is set to 0
 just before each and read just after; every K1 and K2 launch there must be a
 tensor-core one and every K1-K5 call a kernel launch, none a plain version
 (K4 on the main path is the one-launch kernel, never the atomic one; K5
@@ -303,7 +327,9 @@ runs phase 13 alone, with its traced run; ``--fetch`` builds them and
 runs phase 16 alone, with its traced run; ``--sockets`` builds them and
 runs phase 17 alone; ``--fleet`` builds them and runs phase 18 alone;
 ``--rings`` builds them and runs phase 19 alone; ``--native`` builds them
-and runs phase 20 alone; ``--chaos`` builds them and runs phase 22 alone.
+and runs phase 20 alone; ``--chaos`` builds them and runs phase 22 alone;
+``--mesh`` builds them and runs phase 23: (a), (b), then (c) on phase
+20's processes (booted for it, without phase 20's own requests).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -3794,6 +3820,9 @@ SOCK_CHILD_STOP_S = 10.0               # SIGTERM -> exit, else killed
 SOCK_WARM_STRIPES = 8                  # (a)'s warm-up pass
 SOCK_MONITOR = 300                     # (b)'s monitor_collector
 SOCK_PUSH_S = 0.5                      # (b)'s storage sample push period
+# (b)'s epochs: one a worker count (phase 16's turns 1, 2, 4, 4, 2, 1 until
+# phase 23 was added; halved for the script's time limit)
+SOCK_FETCH_WORKERS = (1, 2, 4)
 # the storage processes' data dirs, on the checkout's disk (never
 # /dev/shm: the engine maps tmpfs and skips fsync there); git-ignored,
 # each cluster's removed at its end
@@ -3853,6 +3882,26 @@ def sock_layout(admin, ids) -> None:
 def sock_serving(routing) -> bool:
     return all(t.public_state.name == "SERVING"
                for chain in routing.chains.values() for t in chain.targets)
+
+
+def sock_reads_served(messenger, routing, node_id: int) -> bool:
+    """Every target of ``node_id`` answers a target-addressed read of one
+    of its committed chunks. mgmtd marks a restarted node's targets
+    SERVING before the node's own routing says so (it learns that on a
+    later heartbeat), and until then the node refuses such reads with
+    TARGET_OFFLINE: a client retries them, admin_cli's
+    ``verify-checksums --data`` does not."""
+    from tpu3fs_torch.storage.craq import ReadReq
+
+    for tid, info in routing.targets.items():
+        if info.node_id != node_id or not info.chain_id:
+            continue
+        metas = [m for m in messenger(node_id, "dump_chunkmeta", tid)
+                 if m.committed_ver > 0]
+        if metas and not messenger(node_id, "batch_read", [ReadReq(
+                info.chain_id, metas[0].chunk_id, target_id=tid)])[0].ok:
+            return False
+    return True
 
 
 def sock_node_down(routing, node_id: int) -> bool:
@@ -4447,7 +4496,7 @@ def sock_dataload(ctl, dev, data: dict, mesh, body: bytes, requests: dict,
     """Phase 16's workload over the processes: phase 13's records written
     into 4 record files through ``MetaRpcClient`` and the socket client,
     one shuffled, CRC-verified epoch at depth 4 with 1, 2 and 4 fetch
-    workers in turns (each the same (epoch, step, ids), each batch held
+    workers (SOCK_FETCH_WORKERS; each the same (epoch, step, ids), each batch held
     against its records on ``dev``); then ``body`` written as one file and
     read in 1 MiB reads with readahead off and on, healthy and with the
     second storage process killed. A fresh client a run, closed after it:
@@ -4514,8 +4563,8 @@ def sock_dataload(ctl, dev, data: dict, mesh, body: bytes, requests: dict,
         require_no_workers(f"the socket epoch at {workers} workers")
         return out
 
-    for turn, w in enumerate(FETCH_WORKERS):
-        key = f"epoch_w{w}_{'ab'[turn >= len(FETCH_WORKERS) // 2]}"
+    for w in SOCK_FETCH_WORKERS:
+        key = f"epoch_w{w}_a"
         got = request(key, lambda: epoch(w, key))
         rec.setdefault("epoch", got)
         require(got == rec["epoch"], f"{key}: its batches differ from the "
@@ -5341,7 +5390,7 @@ def fleet(dev) -> dict:
             for node_id in FLEET_SERVING:
                 require(host.peers._ring_for(ctl.serving[node_id])
                         is not None, f"no ring to serving {node_id}")
-            for turn in range(RING_TURNS):
+            for turn in range(FLEET_PEER_TURNS):
                 for kind in (("ring", "socket") if turn % 2 == 0
                              else ("socket", "ring")):
                     fleet_peer_fill(host, dev, steps, info, kind, turn,
@@ -5350,7 +5399,7 @@ def fleet(dev) -> dict:
             host.fleet.peers = host.peers
             for kind in ("ring", "socket"):
                 fills = [steps[f"fill_b_prefix_peer_{kind}{t}"]
-                         for t in range(RING_TURNS)]
+                         for t in range(FLEET_PEER_TURNS)]
                 info[f"peer_fill_{kind}"] = {
                     "GiB_s": med([f["GiB_s"] for f in fills]),
                     "prefix_on_card_ms": med(info[f"prefix_on_card_{kind}"])}
@@ -5473,7 +5522,12 @@ def fleet(dev) -> dict:
 
 
 # -- phase 19 ----------------------------------------------------------------
-RING_TURNS = 3                 # turns of each request on each client
+# phase 19's turns of each request on each client: 3 until phase 23 was
+# added, 1 since (ring first), for the script's time limit
+RING_TURNS = 1
+# phase 18's rotated peer-fill turns over the ring and the socket client
+# (3 until phase 23 was added)
+FLEET_PEER_TURNS = 2
 RING_CHUNKS = 32               # usrbio_bench's batch: 32 chunks of 1 MiB
 # fio_usrbio's seq-write and seq-read shape, 1 MiB blocks at depth 32, on
 # a 256 MiB file, not 1 GiB: the agent syncs the file's length with meta
@@ -5482,8 +5536,8 @@ RING_CHUNKS = 32               # usrbio_bench's batch: 32 chunks of 1 MiB
 # 1 GiB pass took over 800 s); 2 turns on each client, not RING_TURNS:
 # 3 turns at 256 MiB took 122 s of the phase on the C++ engine, which
 # left the script over its 900 s; 128 MiB since phase 21 was added, for
-# the same limit
-RING_API_MIB, RING_API_DEPTH, RING_API_TURNS = 128, 32, 2
+# the same limit; 1 turn since phase 23 was added
+RING_API_MIB, RING_API_DEPTH, RING_API_TURNS = 128, 32, 1
 RING_API_POOL = 64             # distinct 1 MiB source blocks of the API file
 # the loader's epochs read 2 of phase 13's 4 record files (2,048 of 4,096
 # records), for the script's time limit
@@ -5937,7 +5991,7 @@ def ring_recorders(sides: dict, inputs: dict, collector) -> dict:
     from tpu3fs_torch.storage.types import ChunkId
 
     ring = sides["ring"]
-    inode = ring.meta.stat("/rings/ring1")
+    inode = ring.meta.stat(f"/rings/ring{RING_TURNS - 1}")  # the last turn's
     r = ring.routing()
     out = {}
     t0 = collector.settled()
@@ -6558,6 +6612,9 @@ def native_files(ctl, sides: dict, dev, inputs: dict, collector) -> dict:
     out["registered_s"] = time.perf_counter() - t0
     sock_wait(lambda: sock_serving(ctl.admin.refresh_routing()),
               "the restarted node's targets to serve")
+    sock_wait(lambda: sock_reads_served(
+        side.messenger, ctl.admin.refresh_routing(), victim),
+        f"node {victim} to serve reads of its targets")
     out["serving_s"] = time.perf_counter() - t0
     moved = delta(collector.settled(), c0)
     per_node = (K + M) // len(SOCK_IDS)  # shards of a stripe on one node
@@ -6663,7 +6720,7 @@ def native_read_paths(ctl) -> dict:
             "s": time.perf_counter() - t0}
 
 
-def native(dev, full=None, only_operator: bool = False) -> tuple:
+def native(dev, full=None, legs=("native",)) -> dict:
     """Phase 20: the native paths. Phase 17 (b)'s cluster with every
     service on the C++ transport and the storage processes on the C++
     engine on disk (NativeProcesses), driven by a StubFactory("native")
@@ -6674,17 +6731,17 @@ def native(dev, full=None, only_operator: bool = False) -> tuple:
     the resync moves only what was written while down), every engine CRC
     against K2 on the card, and, where io_uring is allowed, the io_uring
     and pread read paths chunk for chunk equal. K1 and K2
-    launch here as tensor-core kernels, no plain version. With ``full``
-    (phase 13's data), phase 21 (``operator``) then runs on the same
-    processes before they stop; ``only_operator`` skips phase 20's own
-    requests. -> (phase 20's launches, phase 21's), None for a phase
-    not run."""
+    launch here as tensor-core kernels, no plain version. ``legs`` names
+    what runs on the processes, in this order: "native" (phase 20's own
+    requests), "operator" (phase 21) and "save" (phase 23 (c)); the last
+    two need ``full`` (phase 13's data). -> leg -> its launches."""
     import tempfile
 
     t_phase = phase("phase 20: the native paths")
     inputs = sock_inputs()
-    uncounted, info, legs = collections.Counter(), {}, {}
+    uncounted, info, steps = collections.Counter(), {}, {}
     ctl, sides, problems, collector = None, {}, [], None
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         try:
             ctl = NativeProcesses(Path(tmp), "cuda" if dev.type == "cuda"
@@ -6695,19 +6752,22 @@ def native(dev, full=None, only_operator: bool = False) -> tuple:
             sides = {"native": NativeSide(ctl, dev, True),
                      "python": NativeSide(ctl, dev, False)}
             sock_warm(ctl, dev)
-            counts, op = None, None
-            if not only_operator:
-                counts = native_requests(ctl, sides, dev, inputs, collector,
-                                         legs, info, uncounted)
-            if full is not None:
-                op = operator(ctl, sides, dev, inputs, collector, full)
+            if "native" in legs:
+                out["native"] = native_requests(ctl, sides, dev, inputs,
+                                                collector, steps, info,
+                                                uncounted)
+            if "operator" in legs:
+                out["operator"] = operator(ctl, sides, dev, inputs,
+                                           collector, full)
+            if "save" in legs:
+                out["save"] = mesh_save(ctl, sides, dev, full)
             problems = ctl.close(keep_data=True)
             info["engines"] = ctl.engines
-            require(not problems, f"phases 20-21: {problems}")
+            require(not problems, f"phases 20, 21 and 23 (c): {problems}")
             t0 = time.perf_counter()
-            legs["read_paths"] = native_read_paths(ctl)
+            steps["read_paths"] = native_read_paths(ctl)
             log(f"  read paths {time.perf_counter() - t0:.1f} s: "
-                + json.dumps(legs["read_paths"]))
+                + json.dumps(steps["read_paths"]))
         finally:
             for side in sides.values():
                 side.close()
@@ -6720,16 +6780,17 @@ def native(dev, full=None, only_operator: bool = False) -> tuple:
             "still there")
     held = info["shm_cleanup"]["still_held"]
     require(not held, f"phase 20: /dev/shm still holds {held}")
-    if counts is None:
-        return None, op
-    counts = {n: c - uncounted[n] for n, c in counts.items()}
+    if "native" not in out:
+        return out
+    counts = {n: c - uncounted[n] for n, c in out["native"].items()}
     require_main_path("the native paths", counts,
                       ("gf2_matmul", "crc32c_blocks"))
-    log(json.dumps({"native": legs, "info": info, "launches": counts,
+    log(json.dumps({"native": steps, "info": info, "launches": counts,
                     "card": card_line(),
                     "seconds": time.perf_counter() - t_phase}, default=str))
     log(f"native: launches {counts} ({time.perf_counter() - t_phase:.1f} s)")
-    return {n: counts[n] for n in counters()}, op
+    out["native"] = {n: counts[n] for n in counters()}
+    return out
 
 
 def native_requests(ctl, sides: dict, dev, inputs: dict, collector,
@@ -6999,15 +7060,16 @@ class OpsFiles(MountFiles):
         return self.o.getattr(path).size
 
 
-def op_files(ctl, fs, inputs: dict) -> tuple:
+def op_files(ctl, fs, inputs: dict, messenger) -> tuple:
     """Step 1 with file calls (``fs``: through the kernel mount, or on the
     operation table where the host refuses the mount): phase 17 (b)'s /a
     written (as a part file with a tail, renamed, truncated to its
     length) and read back; 1 MiB overwritten inside a stripe (K1 at
     k = 1); the first storage node SIGKILLed and /a read degraded (K1
     decodes: 4 shards a stripe are lost), then a new process on its own
-    data dir (the migration step reads /a again). Every byte equal to the
-    source. -> the rates, and /a's expected bytes."""
+    data dir (the migration step reads /a again), until it serves reads
+    of its targets over ``messenger``. Every byte equal to the source.
+    -> the rates, and /a's expected bytes."""
     body = inputs["a"]
     off, n = OP_PATCH
     patch = np.random.default_rng(2121).integers(
@@ -7037,6 +7099,9 @@ def op_files(ctl, fs, inputs: dict) -> tuple:
     ctl.restart(victim, keep_data=True)
     sock_wait(lambda: sock_serving(ctl.admin.refresh_routing()),
               "the restarted node's targets to serve")
+    sock_wait(lambda: sock_reads_served(
+        messenger, ctl.admin.refresh_routing(), victim),
+        f"node {victim} to serve reads of its targets")
     out["restart_serving_s"] = time.perf_counter() - t0
     return out, want
 
@@ -7337,8 +7402,8 @@ def operator(ctl, sides: dict, dev, inputs: dict, collector,
                 f"mount: {mnt.refused}")
             info["refused"] = mnt.refused
             t0 = time.perf_counter()
-            legs["ops"], files["/op/a"] = op_files(ctl, OpsFiles(side),
-                                                   inputs)
+            legs["ops"], files["/op/a"] = op_files(
+                ctl, OpsFiles(side), inputs, side.messenger)
             log(f"  no kernel mount: step 1 on the operation table in "
                 f"this process {time.perf_counter() - t0:.1f} s: "
                 + json.dumps(legs["ops"]))
@@ -7346,7 +7411,7 @@ def operator(ctl, sides: dict, dev, inputs: dict, collector,
             log(f"  mounted at {mnt.mnt} in {mnt.mount_s:.1f} s")
             t0 = time.perf_counter()
             legs["mount"], files["/op/a"] = op_files(
-                ctl, MountFiles(mnt.mnt), inputs)
+                ctl, MountFiles(mnt.mnt), inputs, side.messenger)
             log(f"  mount {time.perf_counter() - t0:.1f} s: "
                 + json.dumps(legs["mount"]))
             t0 = time.perf_counter()
@@ -7766,6 +7831,407 @@ def chaos_scale(dev, cold_nodes: int = SCALE_COLD_NODES) -> tuple:
     return chaos_counts, scale_counts
 
 
+# -- phase 23 ----------------------------------------------------------------
+# (a) the ICI chain transport: phase 10's CR shape, chains of 3 on one node
+MESH_CHAIN, MESH_ICI_CHUNKS, MESH_ICI_PATCHES = 3, 64, 32
+MESH_ICI_PATCH = 4096          # bytes of a partial overwrite
+MESH_ICI_FALLBACK_CHUNKS = 4   # the width-mismatched fabric's batch
+# (b) the EC mesh rebuild: RS(12,4) at phase 11's shape, and RS(3,1)
+MESH_EC = {"rs_12_4": (K, M, FAB_STRIPES), "rs_3_1": (3, 1, 16)}
+# (c) the multi-rank save: phase 13's layer on 4 ranks, a (2, 2) mesh
+MESH_RANKS, MESH_RANK_NODE0 = 4, 90   # rank r pushes as node 90 + r
+MESH_SAVE_ROOT, MESH_WAIT_S = "/mesh-ckpt", 600.0
+
+
+def mesh_ici_run(dev, transport: str, chain_len: int, chunks: np.ndarray,
+                 patches: np.ndarray, counted: bool) -> dict:
+    """One pass of (a) on a fresh in-process fabric (one storage node, 2
+    CR chains of 3 on it): ``chunks`` written in one batch_write, then
+    ``patches`` as partial overwrites in another; ``transport`` ici on a
+    LocalMesh of ``chain_len`` positions, all on ``dev``. With
+    ``counted`` the kernel counts are zeroed before the writes and read
+    after. -> the replies, stored state, hits and fallbacks, write s."""
+    from tpu3fs_torch.fabric import Fabric, SystemSetupConfig
+    from tpu3fs_torch.parallel import make_storage_mesh
+    from tpu3fs_torch.storage.types import ChunkId
+
+    mesh = (make_storage_mesh(chain_len, devices=[dev] * chain_len)
+            if transport == "ici" else None)
+    with deterministic(23):
+        fab = Fabric(SystemSetupConfig(
+            num_storage_nodes=1, num_chains=2, num_replicas=MESH_CHAIN,
+            chunk_size=MIB, chain_transport=transport, mesh=mesh),
+            device=dev)
+    try:
+        client = fab.storage_client()
+        ops = [(fab.chain_ids[i % 2], ChunkId(23, i), 0, chunks[i].tobytes())
+               for i in range(len(chunks))]
+        over = [(fab.chain_ids[i % 2], ChunkId(23, i), 1000 + 7 * i,
+                 patches[i].tobytes()) for i in range(len(patches))]
+        if counted:
+            zero_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        replies = client.batch_write(ops, chunk_size=MIB)
+        write_s = time.perf_counter() - t0
+        replies += client.batch_write(over, chunk_size=MIB)
+        counts = read_counts() if counted else None
+        require(all(r.ok for r in replies), f"{transport}: a write failed: "
+                f"{[r for r in replies if not r.ok][:2]}")
+        svc = next(iter(fab.nodes.values())).service
+        ici = svc._ici
+        return {"replies": [(r.code.name, r.update_ver, r.commit_ver,
+                             r.checksum.value) for r in replies],
+                "stored": fabric_stored(fab),
+                "hits": ici.hits if ici else 0,
+                "fallbacks": ici.fallbacks if ici else 0,
+                "write_s": write_s, "counts": counts}
+    finally:
+        fab.close()
+
+
+def mesh_ici(dev) -> dict:
+    """Phase 23 (a): CR chains of 3 on an in-process fabric with the ICI
+    transport on ``make_storage_mesh(3, devices=[dev] * 3)`` against the
+    messenger: equal replies and committed state (bytes, versions, CRCs
+    a target), hits on every batch, K4 (the hop cross-check) and K2 (the
+    successors' installs) launched; a mesh whose chain axis (2) differs
+    from the chains' width falls back on every batch with the messenger's
+    state. Write MiB/s of both transports in turns (ici, messenger,
+    messenger, ici) after a warm-up of each. -> the counted run's
+    launches."""
+    t0 = time.perf_counter()
+    chunks = rand_u8((MESH_ICI_CHUNKS, MIB), 2301, dev).cpu().numpy()
+    patches = rand_u8((MESH_ICI_PATCHES, MESH_ICI_PATCH), 2302,
+                      dev).cpu().numpy()
+    for transport in ("ici", "messenger"):  # warm-up: allocator, codecs
+        mesh_ici_run(dev, transport, MESH_CHAIN, chunks[:4], patches[:2],
+                     False)
+    runs = {"ici": [], "messenger": []}
+    for i, transport in enumerate(("ici", "messenger", "messenger", "ici")):
+        runs[transport].append(mesh_ici_run(
+            dev, transport, MESH_CHAIN, chunks, patches, counted=i == 0))
+    ici, msg = runs["ici"][0], runs["messenger"][0]
+    for name in ("replies", "stored"):
+        for run in runs["ici"] + runs["messenger"]:
+            require(run[name] == msg[name], f"phase 23 (a): the {name} of "
+                    "the ICI and messenger fabrics differ")
+    batches = 2 * 2  # two batch_writes over two chains
+    require(ici["hits"] == batches and ici["fallbacks"] == 0,
+            f"phase 23 (a): ICI hits {ici['hits']}, fallbacks "
+            f"{ici['fallbacks']}, want {batches} and 0")
+    counts = ici["counts"]
+    require_main_path("the ICI chain transport", counts,
+                      ("xor_fold_crc", "crc32c_blocks"))
+    n = MESH_ICI_FALLBACK_CHUNKS
+    narrow = mesh_ici_run(dev, "ici", 2, chunks[:n], patches[:n], False)
+    wide = mesh_ici_run(dev, "messenger", MESH_CHAIN, chunks[:n],
+                        patches[:n], False)
+    require(narrow["hits"] == 0 and narrow["fallbacks"] > 0,
+            f"phase 23 (a): a chain axis of 2 under chains of 3: hits "
+            f"{narrow['hits']}, fallbacks {narrow['fallbacks']}")
+    require(narrow["stored"] == wide["stored"]
+            and narrow["replies"] == wide["replies"],
+            "phase 23 (a): the fallen-back fabric's state differs")
+    mib = MESH_ICI_CHUNKS
+    out = {name: {"write_MiB_s": [mib / r["write_s"] for r in rs],
+                  "write_MiB_s_median": med([mib / r["write_s"]
+                                             for r in rs])}
+           for name, rs in runs.items()}
+    out.update(hits=ici["hits"], fallbacks_narrow=narrow["fallbacks"],
+               seconds=time.perf_counter() - t0)
+    log(json.dumps({"mesh_ici": out, "launches": counts,
+                    "card": card_line()}))
+    return counts
+
+
+def mesh_rebuild_run(dev, k: int, m: int, stripes: int, mesh_on: bool
+                     ) -> dict:
+    """One pass of (b): an RS(k,m) fabric at phase 11's shape (4 nodes, 2
+    chains, 1 MiB stripes), /a of ``stripes`` stripes written, the first
+    node failed, its targets' engines emptied, the node back and
+    ``resync_all`` (over a LocalMesh of k+m positions on ``dev`` with
+    ``mesh_on``); kernel counts zeroed just before the resync and read
+    just after. -> moved, seconds, lost bytes, launches, stored state,
+    and whether every rebuilt chunk equals its original."""
+    from tpu3fs_torch.fabric import Fabric, SystemSetupConfig
+    from tpu3fs_torch.meta.store import OpenFlags
+    from tpu3fs_torch.parallel import make_storage_mesh
+    from tpu3fs_torch.storage.engine import MemChunkEngine
+
+    body = rand_u8((stripes * MIB,), 2400 + k, dev).cpu().numpy().tobytes()
+    mesh = (make_storage_mesh(k + m, devices=[dev] * (k + m))
+            if mesh_on else None)
+    with deterministic(24):
+        fab = Fabric(SystemSetupConfig(
+            num_storage_nodes=FAB_NODES, num_chains=FAB_CHAINS,
+            chunk_size=MIB, ec_k=k, ec_m=m), device=dev)
+        try:
+            res = fab.meta.create("/a", flags=OpenFlags.WRITE
+                                  | OpenFlags.CREATE, client_id="smoke")
+            fab.file_client().write(res.inode, 0, body)
+            fab.meta.close(res.inode.id, res.session_id)
+            victim = sorted(fab.nodes)[0]
+            targets = fab.nodes[victim].service.targets()
+            original = {t.target_id: {
+                m_.chunk_id.to_bytes(): t.engine.read(m_.chunk_id)
+                for m_ in t.engine.all_metadata()} for t in targets}
+            lost = sum(t.engine.used_size() for t in targets)
+            fab.fail_node(victim)
+            for t in targets:
+                t.engine = MemChunkEngine(device=dev)
+            fab.restart_node(victim)
+            zero_counts()
+            t0 = time.perf_counter()
+            moved = fab.resync_all(rounds=6, mesh=mesh)
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            rebuilt = {t.target_id: {
+                m_.chunk_id.to_bytes(): t.engine.read(m_.chunk_id)
+                for m_ in t.engine.all_metadata()} for t in targets}
+            return {"moved": moved, "seconds": secs, "lost_bytes": lost,
+                    "counts": counts, "stored": fabric_stored(fab),
+                    "equal": rebuilt == original,
+                    "chunks": sum(len(v) for v in original.values())}
+        finally:
+            fab.close()
+
+
+def mesh_rebuild(dev) -> dict:
+    """Phase 23 (b): the EC mesh rebuild (``resync_all(mesh=...)``) at
+    RS(12,4) and RS(3,1), each against the resync without a mesh on the
+    same writes: every rebuilt chunk equal to its original, the stored
+    state equal to the meshless resync's; K1 launched at RS(12,4) (every
+    shard outside the k survivors declared lost: 4 decoded), K3 at
+    RS(3,1). Rebuild MiB/s of both routes, mesh first. -> the mesh runs'
+    launches, summed."""
+    t0 = time.perf_counter()
+    total, out = collections.Counter(), {}
+    for name, (k, m, stripes) in MESH_EC.items():
+        mesh_rebuild_run(dev, k, m, 2, True)  # warm-up: codecs, matrices
+        runs = {"mesh": mesh_rebuild_run(dev, k, m, stripes, True),
+                "no_mesh": mesh_rebuild_run(dev, k, m, stripes, False)}
+        for route, run in runs.items():
+            require(run["equal"] and run["moved"] >= run["chunks"] > 0,
+                    f"phase 23 (b) {name} {route}: rebuilt chunks differ "
+                    f"or missing (moved {run['moved']} of {run['chunks']})")
+        require(runs["mesh"]["stored"] == runs["no_mesh"]["stored"],
+                f"phase 23 (b) {name}: the mesh and meshless rebuilds' "
+                "stored state differ")
+        need = ("gf2_matmul",) if m > 1 else ("xor_reduce",)
+        require_main_path(f"the EC mesh rebuild {name}",
+                          runs["mesh"]["counts"], need)
+        total.update(runs["mesh"]["counts"])
+        out[name] = {route: {
+            "moved": r["moved"], "seconds": r["seconds"],
+            "rebuild_MiB_s": r["lost_bytes"] / MIB / r["seconds"],
+            "launches": {n: c for n, c in r["counts"].items() if c}}
+            for route, r in runs.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"mesh_rebuild": out, "card": card_line()}))
+    return {n: total[n] for n in counters()}
+
+
+def mesh(dev) -> tuple:
+    """Phase 23 (a) and (b); (c) runs on phase 20's processes
+    (``mesh_save``). -> ((a)'s launches, (b)'s)."""
+    t0 = phase("phase 23: the ICI chain transport and the EC mesh rebuild")
+    ici = mesh_ici(dev)
+    rebuild = mesh_rebuild(dev)
+    log(f"mesh: ICI launches {dict((n, c) for n, c in ici.items() if c)}, "
+        f"rebuild {dict((n, c) for n, c in rebuild.items() if c)} "
+        f"({time.perf_counter() - t0:.1f} s, {card_line()})")
+    return ici, rebuild
+
+
+def mesh_placements(shape: tuple) -> list:
+    """(c)'s sharding on the (dp, chain) mesh: a matrix's rows over dp and
+    columns over chain, a vector over dp and replicated over chain."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0), Shard(1)] if len(shape) == 2 else [Shard(0),
+                                                          Replicate()]
+
+
+def mesh_save_rank(rank: int, world: int, port: int, mgmtd, meta, mon,
+                   out: str, device: str, leaves: dict) -> None:
+    """One rank process of (c): a gloo group over ``world`` ranks,
+    ``leaves`` (name -> shape) drawn on ``device`` as ``train_data``
+    draws them, this rank's boxes as DTensors on a (2, 2) mesh of
+    ``device`` (cuda DTensors on the card), one
+    ``CheckpointManager.save`` through a C++-transport client of phase
+    20's processes; its kernel launches pushed to the collector as
+    ``kernel.launches`` tagged node 90 + rank; a line of JSON to
+    ``out``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from unittest import mock
+
+    from tpu3fs_torch import kernels
+    from tpu3fs_torch.ckpt import CheckpointManager
+    from tpu3fs_torch.ckpt.manifest import placement_box
+    from tpu3fs_torch.client.file_io import FileIoClient
+    from tpu3fs_torch.client.stubs import StubFactory
+    from tpu3fs_torch.monitor.collector import BufferedCollectorSink
+    from tpu3fs_torch.monitor.recorder import Monitor
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=MESH_WAIT_S))
+    stubs = None
+    try:
+        recorder = kernels.launch_recorder({"node": str(MESH_RANK_NODE0
+                                                        + rank)})
+        sink = BufferedCollectorSink(tuple(mon))
+        Monitor.default().add_sink(sink)
+        grid = init_device_mesh(dev.type, (world // 2, 2),
+                                mesh_dim_names=("dp", "chain"))
+        coord, sizes = grid.get_coordinate(), tuple(grid.shape)
+        full = train_data(dev, {"leaves": leaves, "records": 0})["tree"]
+        tree = {}
+        for key, value in full.items():
+            pl = mesh_placements(tuple(value.shape))
+            off, shape = placement_box(tuple(value.shape), pl, sizes, coord)
+            local = value[tuple(slice(o, o + n)
+                                for o, n in zip(off, shape))].clone()
+            tree[key] = DTensor.from_local(local, grid, pl, run_check=False,
+                                           shape=value.shape,
+                                           stride=value.stride())
+        del full
+        stubs = StubFactory("native", mgmtd_addr=tuple(mgmtd),
+                            meta_addr=tuple(meta))
+        with mock.patch.dict(os.environ, {"TPU3FS_USRBIO": "0"}):
+            sc = stubs.storage_client(f"mesh-rank{rank}", device=dev)
+        mgr = CheckpointManager(stubs.meta_client(), FileIoClient(sc),
+                                root=MESH_SAVE_ROOT,
+                                client_id=f"mesh-rank{rank}")
+        dist.barrier()
+        t0 = time.perf_counter()
+        manifest = mgr.save(tree, 1)
+        secs = time.perf_counter() - t0
+        launches = kernels.counts()
+        Monitor.default().collect()  # the launches, to the collector
+        require(sink.backlog() == 0, f"rank {rank}: the push failed")
+        mine = sum(int(t.to_local().numel()) * 4 for t in tree.values())
+        Path(out).write_text(json.dumps({
+            "rank": rank, "seconds": secs, "local_bytes": mine,
+            "shards": len(manifest.shards),
+            "crcs": [s.crc for s in manifest.shards],
+            "launches": {n: c for n, c in launches.items() if c},
+            "recorder": type(recorder).__name__}))
+        sc.close()
+    finally:
+        if stubs is not None:
+            stubs.close()
+        dist.destroy_process_group()
+
+
+def mesh_save(ctl, sides: dict, dev, full: dict) -> dict:
+    """Phase 23 (c) on phase 20's processes: MESH_RANKS rank processes on
+    a gloo group save phase 13's Llama-3.1-8B decoder layer as DTensors
+    sharded over a (2, 2) mesh (``mesh_save_rank``); rank 0 commits. The
+    manifest is held against the layout (4 boxes a matrix, 2 a norm, the
+    mesh), every rank's CRCs against the committed ones, and a verified
+    restore through the script's native client against ``full``'s
+    leaves byte for byte. -> the ranks' launches as they pushed them to
+    the collector (the script's restore is a check, not counted)."""
+    t_phase = phase("phase 23 (c): the multi-rank save")
+    from tpu3fs_torch.ckpt import CheckpointManager
+
+    port, procs, outs = free_port(), [], []
+    code = ("import sys, json; sys.path.insert(0, {root!r}); "
+            "import chip_smoke as cs; cs.mesh_save_rank(*json.loads("
+            "sys.argv[1]))")
+    root = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    try:
+        for r in range(MESH_RANKS):
+            outs.append(ctl.logdir / f"mesh-rank{r}.json")
+            log_path = ctl.logdir / f"mesh-rank{r}.log"
+            with open(log_path, "w") as logf:
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-c", code.format(root=root),
+                     json.dumps([r, MESH_RANKS, port, ctl.maddr,
+                                 ctl.meta_addr, ctl.mon_addr,
+                                 str(outs[-1]), dev.type,
+                                 full["leaves"]])],
+                    stdout=logf, stderr=subprocess.STDOUT, cwd=root,
+                    env={**os.environ, "TPU3FS_USRBIO": "0"}), log_path))
+        deadline = time.monotonic() + MESH_WAIT_S
+        for proc, _ in procs:
+            try:
+                proc.wait(max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(SOCK_CHILD_STOP_S)
+    wall = time.perf_counter() - t0
+    for (proc, log_path), r in zip(procs, range(MESH_RANKS)):
+        require(proc.returncode == 0, f"mesh rank {r} exited "
+                f"{proc.returncode}:\n"
+                + log_path.read_text(errors="replace")[-3000:])
+    ranks = [json.loads(p.read_text()) for p in outs]
+    side = sides["native"]
+    mgr = CheckpointManager(side.meta, side.fio, root=MESH_SAVE_ROOT)
+    c0 = read_counts()
+    manifest = mgr.manifest(1)
+    crcs = [s.crc for s in manifest.shards]
+    for row in ranks:
+        require(row["crcs"] == crcs, f"rank {row['rank']}'s CRCs differ "
+                "from the committed manifest's")
+    per_leaf = {leaf.key: len(manifest.shards_of_leaf(i))
+                for i, leaf in enumerate(manifest.leaves)}
+    require(all(n == (4 if len(full["tree"][k].shape) == 2 else 2)
+                for k, n in per_leaf.items())
+            and manifest.mesh == {"dp": 2, "chain": 2},
+            f"the manifest's boxes {per_leaf}, mesh {manifest.mesh}")
+    t1 = time.perf_counter()
+    back = mgr.restore(1, like=full["tree"])
+    restore_s = time.perf_counter() - t1
+    for key, want in full["tree"].items():
+        require(back[key].device == want.device
+                and torch.equal(back[key], want),
+                f"phase 23 (c): {key} differs after its restore")
+    uncounted = {n: c - c0[n] for n, c in read_counts().items()}
+    del back
+    pushed = collections.Counter()
+    for r in range(MESH_RANKS):
+        pushed.update(op_launches(ctl, MESH_RANK_NODE0 + r))
+    reported = collections.Counter()
+    for row in ranks:
+        reported.update(row["launches"])
+    require(all(pushed[n] == reported[n] for n in counters()),
+            f"the ranks pushed {dict(pushed)}, reported {dict(reported)}")
+    launches = {n: pushed[n] for n in counters()}
+    require_main_path("the multi-rank save", launches, ("crc32c_blocks",))
+    nbytes = sum(t.numel() * t.element_size() for t in full["tree"].values())
+    slowest = max(row["seconds"] for row in ranks)
+    info = {"ranks": MESH_RANKS, "leaves": len(per_leaf),
+            "shards": len(crcs), "MiB": nbytes / MIB,
+            "save_s_by_rank": [row["seconds"] for row in ranks],
+            "save_GiB_s": nbytes / (1 << 30) / slowest,
+            "restore_s": restore_s,
+            "restore_GiB_s": nbytes / (1 << 30) / restore_s,
+            "ranks_wall_s": wall, "restore_launches_uncounted":
+            {n: c for n, c in uncounted.items() if c},
+            "leaves_on": f"{dev.type} DTensors on a (2, 2) {dev.type} "
+                         "mesh over gloo"}
+    log(json.dumps({"mesh_save": info, "launches": launches,
+                    "card": card_line(),
+                    "seconds": time.perf_counter() - t_phase}))
+    log(f"mesh save: launches {dict((n, c) for n, c in launches.items() if c)}"
+        f" ({time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     kind = environment()
@@ -7813,10 +8279,15 @@ def main() -> int:
         native(dev)
         return 0
     if sys.argv[1:] == ["--operator"]:
-        native(dev, train_data(dev, TRAIN_FULL), only_operator=True)
+        native(dev, train_data(dev, TRAIN_FULL), legs=("operator",))
         return 0
     if sys.argv[1:] == ["--chaos"]:
         chaos_scale(dev, cold_nodes=SCALE_NODES)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        mesh(dev)
+        native(dev, train_data(dev, TRAIN_FULL), legs=("save",))
+        log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
     cmps = {name: Compare() for name in ("K1", "K2", "K3", "K4", "K5",
                                          "K5s", "K5a")}
@@ -7841,11 +8312,16 @@ def main() -> int:
     paths["sockets"] = sockets(dev, train_full)
     paths["fleet"] = fleet(dev)
     paths["rings"] = rings(dev, train_full)
-    paths["native"], paths["operator"] = native(dev, train_full)
+    on_native = native(dev, train_full,
+                       legs=("native", "operator", "save"))
+    paths["native"], paths["operator"], paths["mesh_save"] = (
+        on_native["native"], on_native["operator"], on_native["save"])
     paths["chaos"], paths["scale"] = chaos_scale(dev)
+    paths["ici"], paths["mesh_rebuild"] = mesh(dev)
     for row in kernels:
         for path in ("fetch", "sockets", "fleet", "rings", "native",
-                     "operator", "chaos", "scale"):
+                     "operator", "mesh_save", "chaos", "scale", "ici",
+                     "mesh_rebuild"):
             row["launches_by_path"][path] = paths[path][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     storage_shares(dev, inputs, card)

@@ -8,8 +8,21 @@ runner's; the oracle's admissible-CRC sets are equal for the CR, EC and
 partition seeds; one schedule run twice gives one verdict; the planted
 ``commit_skip`` is found within the JAX test's budget and shrinks to the
 same prefix; ``save_seed``/``replay_seed`` round-trip in a temporary
-directory. Tolerance 0."""
+directory. Tolerance 0.
 
+Two read-path policies of both packages decide on the wall clock, and
+every runner here rides them: a client's peer health (a breaker that
+cools down after 1 s, a latency-outlier test at 20 ms) and its hedged
+reads (a backup read armed 5 ms into a slow primary). A JAX replay takes
+a fraction of a second, so its breakers never cool down, no peer is an
+outlier and no read hedges; the port's replays on the CPU run the plain
+CRC, take seconds, and under a loaded host crossed those lines, each
+crossing changing which fault rule a later call draws. ``steady_clock``
+pins both packages to the sub-second run's decisions for every test: the
+registries' breaker clock stands still, no latency makes an outlier and
+no hedge arms. Every report field is still compared."""
+
+import contextlib
 import json
 import os
 
@@ -28,8 +41,34 @@ from tpu3fs_torch.utils.fault_injection import plane as tplane
 SMALL = dict(steps=20, events=6, storage_nodes=3, num_chains=2,
              num_replicas=2)
 CORPUS = jsearch.load_corpus()
+HEDGE_NEVER_S = 3600.0  # a hedge delay no in-process read outlasts
 PACKAGES = {"jax": (jsched, jsearch, jbugs, {}),
             "torch": (tsched, tsearch, tbugs, {"device": "cpu"})}
+
+
+@pytest.fixture(autouse=True)
+def steady_clock():
+    """Both packages' health registries on a clock that stands still and
+    with no latency outlier, and their hedges never armed (see the module
+    docstring)."""
+    from unittest import mock
+
+    from tpu3fs.client import hedging as jhedging
+    from tpu3fs.rpc import health as jhealth
+    from tpu3fs_torch.client import hedging as thedging
+    from tpu3fs_torch.rpc import health as thealth
+
+    with contextlib.ExitStack() as stack:
+        for health, hedging in ((jhealth, jhedging), (thealth, thedging)):
+            init = health.HealthRegistry.__init__
+            stack.enter_context(mock.patch.object(
+                init, "__kwdefaults__",
+                {**init.__kwdefaults__, "clock": lambda: 0.0,
+                 "slow_ms": float("inf")}))
+            stack.enter_context(mock.patch.object(
+                hedging.HedgeController, "delay_s",
+                lambda self, peer=None: HEDGE_NEVER_S))
+        yield
 
 
 @pytest.fixture(autouse=True)

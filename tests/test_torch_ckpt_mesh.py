@@ -8,7 +8,11 @@ CPU (tests/torch_train_ranks.py) and restores onto DTensor templates on a
 (4, 2) mesh, verified and byte-range exact. Rank r sits at mesh position
 (r // 2, r % 2), as virtual device r does in the JAX mesh, and its local
 tensor must equal that device's shard. A save of a DTensor on the 8-rank
-mesh must raise ``NotImplementedError``. Tolerance 0."""
+mesh must raise on every rank, with one message, and leave no manifest:
+each rank holds its own copy of the fabric here, so every rank but 0
+finds no ``.tmp`` directory to write into (and rank 3's writes are
+refused besides); tests/test_torch_ckpt_ranks.py saves on 8 ranks into
+one cluster. Tolerance 0."""
 
 import pickle
 
@@ -94,5 +98,10 @@ def test_rank_local_equals_device_shard(restored, mode, key):
 
 
 def test_multi_rank_dtensor_save_raises(restored):
+    """Shard writes failing on ranks fail the save on every rank, all
+    naming the lowest failed rank, and rank 0 commits no manifest."""
     *_, outs = restored
-    assert all(bool(out["save_raised"]) for out in outs)
+    errors = {str(out["save_error"]) for out in outs}
+    assert len(errors) == 1 and "shard write failed on rank 1" in \
+        errors.pop()
+    assert not bool(outs[0]["committed"])

@@ -314,17 +314,20 @@ def test_file_client_prefetch_raises():
 
 
 @pytest.mark.parametrize("option, error, match", [
-    (dict(chain_transport="ici"), NotImplementedError, "M8"),
+    (dict(chain_transport="ici", mesh=object()), NotImplementedError, "M8"),
     (dict(mesh=object()), NotImplementedError, "M8"),
     (dict(engine="native"), None, "NativeChunkEngine"),
 ], ids=["option0-NotImplementedError-M8", "option1-NotImplementedError-M8",
         "option2-native-engine-serves"])
 def test_fabric_multicard_options_raise_native_engine_serves(option, error, match,
                                                             tmp_path):
-    """The multi-card options raise; ``engine="native"``, which raised
-    until the C++ engine was ported, builds a fabric whose targets run
-    it, each in its own directory under ``engine_dir``, and a file goes
-    in and out."""
+    """A mesh that is not a ``LocalMesh`` (the process-group form, one
+    process a card) raises, with or without the ICI transport: the
+    in-process fabric cannot drive a per-rank collective (the ICI fabric
+    on a ``LocalMesh`` is held against the JAX package by
+    test_torch_mesh.py); ``engine="native"``, which raised until the C++
+    engine was ported, builds a fabric whose targets run it, each in its
+    own directory under ``engine_dir``, and a file goes in and out."""
     if error is not None:
         with pytest.raises(error, match=match):
             _cpu_fabric(**option)
@@ -347,8 +350,12 @@ def test_fabric_multicard_options_raise_native_engine_serves(option, error, matc
 
 
 def test_fabric_resync_refuses_a_mesh():
+    """A mesh that is not a ``LocalMesh`` raises; the resync over a
+    ``LocalMesh`` is held against the JAX package by test_torch_mesh.py."""
     with pytest.raises(NotImplementedError, match="M7"):
         _cpu_fabric().resync_all(mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        _cpu_fabric(chain_transport="ici")
 
 
 def test_fabric_and_client_default_to_the_card():

@@ -12,7 +12,12 @@ a chain table uploaded through ``MgmtdAdminRpcClient``), with every
 background loop parked (hour-long intervals): the sequence drives the
 heartbeats, mgmtd's ticks, target scans and resync rounds itself, on a
 clock of its own for mgmtd, as ``Fabric.fail_node``/``resync_all`` do, so
-two runs step through the same routing versions.
+two runs step through the same routing versions. The monitor push is
+parked too (``monitor_push_period_s``, the config item every binary
+reads before its ``--monitor-period`` flag): its collect resets every
+windowed counter of the process, the storage clients' ``_ec_*`` path
+counters that the record reads among them, so a push landing inside a
+run would zero them.
 
 Randomness: an EC stripe version carries a writer nonce and a file's
 layout seed comes from ``time.time_ns``. ``deterministic`` draws both from
@@ -143,7 +148,8 @@ class AppCluster:
         self.mgmtd_app = self._bin.mgmtd.MgmtdApp(
             ["--node-id", str(self.MGMTD_ID),
              f"--config.tick_interval_s={PARKED}",
-             "--config.heartbeat_timeout_s=60"],
+             "--config.heartbeat_timeout_s=60",
+             f"--config.monitor_push_period_s={PARKED}"],
             clock=self.clock, **self._app_kw)
         self.mgmtd_app.run_background()
         self.apps.append(self.mgmtd_app)
@@ -196,7 +202,8 @@ class AppCluster:
     def _two_phase_argv(self, node_id: int) -> list:
         return ["--node-id", str(node_id),
                 "--mgmtd", "%s:%d" % self.maddr,
-                "--heartbeat_interval", PARKED]
+                "--heartbeat_interval", PARKED,
+                f"--config.monitor_push_period_s={PARKED}"]
 
     def _start_storage(self, node_id: int):
         app = self._bin.storage.StorageApp(

@@ -25,20 +25,34 @@ survives the storage client's own ladder pauses the saver for the
 server's retry-after hint instead of failing the checkpoint.
 
 The port's own copy of ``tpu3fs/ckpt/saver.py``. A leaf is a numpy array
-(or scalar), a ``torch.Tensor`` on any device, or a DTensor on a mesh of
-one rank; a tensor is snapshotted by one blocking copy to the host, the
-only device work ``save_async`` does before it returns. A DTensor on a
-mesh of more than one rank has shards this process cannot address, and a
-save of it would need a manifest gathered across ranks, which the JAX
-package does not have: it raises ``NotImplementedError``. Shard CRCs come
-from the write path's checksum pass (``crc32c_many`` on the client's
-device); the OVERLOADED fallback takes them from one ``crc32c_pieces``
-call. A bfloat16 leaf fails where the JAX package's save fails (numpy
-has no buffer format for it).
+(or scalar), a ``torch.Tensor`` on any device, or a DTensor; a tensor is
+snapshotted by one blocking copy to the host, the only device work
+``save_async`` does before it returns. Shard CRCs come from the write
+path's checksum pass (``crc32c_many`` on the client's device); the
+OVERLOADED fallback takes them from one ``crc32c_pieces`` call. A
+bfloat16 leaf fails where the JAX package's save fails (numpy has no
+buffer format for it).
+
+A tree holding a DTensor on a mesh of more than one rank is saved by
+every rank of the default process group together (``save`` called on
+each, as a collective): the JAX package saves such an array from one
+process that addresses every shard; here each rank addresses its own.
+Each rank writes the boxes whose mesh coordinates are 0 along every
+``Replicate`` dimension (JAX's ``replica_id == 0``), named as the JAX
+package names them (``l<leaf>.s<j>``, j the box's order over the mesh's
+positions); rank 0 writes every other leaf. Rank 0 checks the step, takes
+the session and makes the ``.tmp`` directory; one object collective tells
+every rank whether that worked. After the shard writes, every rank's CRCs
+(or failure) are gathered to every rank between two barriers: a failure
+on any rank fails the save on every rank and no manifest is written;
+otherwise rank 0 writes the manifest and renames the step, and a second
+broadcast hands every rank the outcome. ``save_async`` of such a tree
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 import uuid
@@ -59,6 +73,7 @@ from tpu3fs_torch.ckpt.manifest import (
     flatten_tree,
     leaf_keypaths,
     mesh_axes,
+    placement_box,
     shard_file_name,
     step_dir,
     tmp_dir,
@@ -71,7 +86,7 @@ from tpu3fs_torch.monitor.recorder import CounterRecorder, DistributionRecorder
 from tpu3fs_torch.ops.crc32c import crc32c_pieces
 from tpu3fs_torch.qos.core import TrafficClass, retry_after_ms_of, tagged
 from tpu3fs_torch.rpc.serde import deserialize, serialize
-from tpu3fs_torch.utils.result import Code, FsError
+from tpu3fs_torch.utils.result import Code, FsError, Status
 from tpu3fs_torch.utils.result import err as _err
 
 _SESSION_PREFIX = b"CKPS"  # KV keyspace: CKPS + root path
@@ -206,6 +221,73 @@ class AsyncCheckpoint:
         self._done.set()
 
 
+def _refuse_bf16(manifest: Manifest, shards) -> None:
+    """Raise for a shard of a bfloat16 leaf."""
+    for spec in shards:
+        if manifest.leaves[spec.leaf].dtype == BF16_STR:
+            raise ValueError(
+                f"leaf {manifest.leaves[spec.leaf].key}: a bfloat16 leaf "
+                "has no numpy buffer format, and the JAX package's save "
+                "fails here too (ROADMAP queue 3)")
+
+
+def _dtensor_spec(leaf: DTensor) -> List[str]:
+    """The manifest's axis spec of a DTensor: per dim, the mesh axes that
+    shard it, comma-joined in mesh order (a ``PartitionSpec``'s names)."""
+    gshape = tuple(leaf.shape)
+    names = list(mesh_axes(leaf.device_mesh))
+    return [",".join(names[i] for i, p in enumerate(leaf.placements)
+                     if p.is_shard() and p.dim % len(gshape) == d)
+            for d in range(len(gshape))]
+
+
+def _multi_rank(leaf) -> bool:
+    return isinstance(leaf, DTensor) and leaf.device_mesh.size() > 1
+
+
+def _replica0_boxes(leaf: DTensor) -> List[Tuple[List[int], List[int]]]:
+    """The distinct boxes of a DTensor held at mesh coordinates that are 0
+    along every ``Replicate`` dimension, in row-major coordinate order
+    (the JAX package's ``replica_id == 0`` shards in device order)."""
+    mesh, placements = leaf.device_mesh, leaf.placements
+    sizes = tuple(mesh.shape)
+    boxes: List[Tuple[List[int], List[int]]] = []
+    for coord in itertools.product(*(range(n) for n in sizes)):
+        if any(c for c, p in zip(coord, placements) if p.is_replicate()):
+            continue
+        box = placement_box(tuple(leaf.shape), placements, sizes, coord)
+        if box not in boxes:
+            boxes.append(box)
+    return boxes
+
+
+def _my_box(leaf: DTensor) -> Optional[Tuple[List[int], List[int]]]:
+    """This rank's box of ``leaf`` when it is the box's replica-0 writer,
+    else None."""
+    coord = leaf.device_mesh.get_coordinate()
+    if coord is None or any(c for c, p in zip(coord, leaf.placements)
+                            if p.is_replicate()):
+        return None
+    return placement_box(tuple(leaf.shape), leaf.placements,
+                         tuple(leaf.device_mesh.shape), coord)
+
+
+def _failure(e: BaseException) -> Tuple[int, str]:
+    """A rank's failure as (code, message), fit for an object collective."""
+    if isinstance(e, FsError):
+        return int(e.code), e.status.message
+    return int(Code.INTERNAL), f"{type(e).__name__}: {e}"
+
+
+def _raise_first(failures, what: str) -> None:
+    """Raise the first failure of [(rank, (code, message) or None)]."""
+    for rank, f in failures:
+        if f is not None:
+            code, message = f
+            raise FsError(Status(Code(code),
+                                 f"{what} failed on rank {rank}: {message}"))
+
+
 class CheckpointSaver:
     """Save half of the checkpoint manager (see ckpt/__init__)."""
 
@@ -248,18 +330,8 @@ class CheckpointSaver:
         fetch)]) for the DISTINCT shards this process must write. A
         tensor's fetch returns the host snapshot taken here."""
         if isinstance(leaf, DTensor):
-            mesh = leaf.device_mesh
-            if mesh.size() > 1:
-                raise NotImplementedError(
-                    f"saving a DTensor on a mesh of {mesh.size()} ranks "
-                    "needs a manifest gathered across ranks, which the JAX "
-                    "package does not have (ROADMAP M10c); restore onto "
-                    "DTensor templates works on any number of ranks")
             gshape = tuple(leaf.shape)
-            names = list(mesh_axes(mesh))
-            spec = [",".join(names[i] for i, p in enumerate(leaf.placements)
-                             if p.is_shard() and p.dim % len(gshape) == d)
-                    for d in range(len(gshape))]
+            spec = _dtensor_spec(leaf)
             host = _host_snapshot(leaf.to_local())
             return (dtype_str(leaf.dtype), gshape, spec,
                     [([0] * len(gshape), list(gshape), lambda: host)])
@@ -392,26 +464,14 @@ class CheckpointSaver:
         step = manifest.step
         tpath = tmp_dir(self.root, step)
         with tagged(TrafficClass.CKPT):
-            try:
-                self._meta.mkdirs(tpath, recursive=True)
-            except FsError as e:
-                if e.code != Code.META_EXISTS:
-                    raise
-                # leftovers of a crashed save of the SAME step: restart
-                self._meta.remove(tpath, recursive=True)
-                self._meta.mkdirs(tpath, recursive=True)
+            self._make_tmp(step)
             # shard arrays go out as BYTE VIEWS of the host snapshot (no
             # tobytes() copy per shard) in one batched striped write;
             # OVERLOADED sheds that outlast the client ladder fall back
             # to the per-file self-throttle path. The manifest commits
             # AFTER the shards: its per-shard CRCs come from the write
             # path's own checksum pass (ONE pooled content pass per save)
-            for spec, shard in zip(manifest.shards, planned):
-                if manifest.leaves[spec.leaf].dtype == BF16_STR:
-                    raise ValueError(
-                        f"leaf {manifest.leaves[spec.leaf].key}: a bfloat16 "
-                        "leaf has no numpy buffer format, and the JAX "
-                        "package's save fails here too (ROADMAP queue 3)")
+            _refuse_bf16(manifest, manifest.shards)
             items: List[Tuple[str, object]] = [
                 (f"{tpath}/{spec.file}",
                  memoryview(np.ascontiguousarray(shard.data)).cast("B"))
@@ -438,7 +498,11 @@ class CheckpointSaver:
 
     # -- public API -------------------------------------------------------
     def save(self, tree, step: int) -> Manifest:
-        """Synchronous sharded save; returns the committed manifest."""
+        """Synchronous sharded save; returns the committed manifest. A
+        tree with a DTensor on a mesh of more than one rank is saved by
+        every rank together (see the module docstring)."""
+        if any(_multi_rank(leaf) for leaf in flatten_tree(tree)[1]):
+            return self._save_ranks(tree, step)
         if self._exists(step):
             raise _err(Code.META_EXISTS, step_dir(self.root, step))
         session = SaveSession(self._kv, self.root, step, self._client_id,
@@ -456,6 +520,10 @@ class CheckpointSaver:
         worker writes + commits. The KV session is taken BEFORE returning,
         so a second save to this root fails fast with CKPT_BUSY until the
         in-flight commit releases it."""
+        if any(_multi_rank(leaf) for leaf in flatten_tree(tree)[1]):
+            raise NotImplementedError(
+                "save_async of a DTensor on a mesh of more than one rank: "
+                "its collectives would run on the save's thread; use save")
         if self._exists(step):
             raise _err(Code.META_EXISTS, step_dir(self.root, step))
         t0 = time.perf_counter()
@@ -483,6 +551,158 @@ class CheckpointSaver:
                          name=f"ckpt-save-{step}").start()
         self._stall_ms.record((time.perf_counter() - t0) * 1e3)
         return handle
+
+    # -- the multi-rank save ---------------------------------------------
+    def _plan_ranks(self, tree, step: int, rank: int
+                    ) -> Tuple[Manifest, List[Tuple[int, np.ndarray]]]:
+        """The whole manifest (every leaf's replica-0 boxes, CRCs 0) and
+        this rank's share: [(index into manifest.shards, host snapshot)].
+        Rank 0 takes every leaf that is not a DTensor on a mesh of more
+        than one rank."""
+        skeleton, leaves = flatten_tree(tree)
+        keys = leaf_keypaths(skeleton)
+        manifest = Manifest(step=step, created=self._clock(), tree=skeleton)
+        mine: List[Tuple[int, np.ndarray]] = []
+        for i, leaf in enumerate(leaves):
+            if not _multi_rank(leaf):
+                dtype, gshape, spec, shards = self._leaf_arrays(leaf)
+                boxes = [(off, shape) for off, shape, _ in shards]
+                fetch = ({tuple(off): f for off, _, f in shards}
+                         if rank == 0 else {})
+            else:
+                dtype, gshape = dtype_str(leaf.dtype), tuple(leaf.shape)
+                spec, boxes = _dtensor_spec(leaf), _replica0_boxes(leaf)
+                box = _my_box(leaf)
+                fetch = {} if box is None else {tuple(box[0]): (
+                    lambda t=leaf: _host_snapshot(t.to_local()))}
+            manifest.leaves.append(LeafSpec(
+                key=keys[i], dtype=dtype, shape=list(gshape), spec=spec))
+            itemsize = np.dtype(dtype).itemsize  # "<V2" for bfloat16: 2
+            for j, (off, shape) in enumerate(boxes):
+                manifest.shards.append(ShardSpec(
+                    leaf=i, offset=list(off), shape=list(shape),
+                    file=shard_file_name(i, j),
+                    length=int(np.prod(shape, dtype=np.int64)) * itemsize,
+                    crc=0))
+                if tuple(off) in fetch:
+                    data = np.ascontiguousarray(fetch[tuple(off)]())
+                    if list(data.shape) != list(shape):
+                        raise ValueError(
+                            f"leaf {keys[i]}: local shard {data.shape}, "
+                            f"box {shape}")
+                    mine.append((len(manifest.shards) - 1, data))
+            if isinstance(leaf, DTensor):
+                manifest.mesh.update(mesh_axes(leaf.device_mesh))
+        return manifest, mine
+
+    def _write_mine(self, manifest: Manifest,
+                    mine: List[Tuple[int, np.ndarray]]) -> List[int]:
+        """Write this rank's shards into the step's ``.tmp`` directory:
+        one batched striped write (CRCs from its checksum pass, K2 on the
+        client's device), per file with ``crc32c_pieces`` on an
+        OVERLOADED shed. -> their CRCs, in ``mine``'s order."""
+        tpath = tmp_dir(self.root, manifest.step)
+        _refuse_bf16(manifest, [manifest.shards[idx] for idx, _ in mine])
+        items = [(f"{tpath}/{manifest.shards[idx].file}",
+                  memoryview(data).cast("B")) for idx, data in mine]
+        if not items:
+            return []
+        try:
+            return [cs.value for cs in self._write_files_batched(items)]
+        except FsError as e:
+            if e.code != Code.OVERLOADED:
+                raise
+        crcs = crc32c_pieces([data for _, data in items],
+                             device=self._fio.storage.device)
+        for path, data in items:
+            self._write_file(path, data)
+        return crcs
+
+    def _commit_manifest(self, manifest: Manifest) -> None:
+        """Write the manifest and rename the step into place."""
+        tpath = tmp_dir(self.root, manifest.step)
+        mpath = f"{tpath}/{MANIFEST_NAME}"
+        try:
+            self._write_files_batched([(mpath, manifest.encode())])
+        except FsError as e:
+            if e.code != Code.OVERLOADED:
+                raise
+            self._write_file(mpath, manifest.encode())
+        self._meta.rename(tpath, step_dir(self.root, manifest.step))
+
+    def _make_tmp(self, step: int) -> None:
+        """Make the step's ``.tmp`` directory, emptied of a crashed
+        save's leftovers."""
+        tpath = tmp_dir(self.root, step)
+        try:
+            self._meta.mkdirs(tpath, recursive=True)
+        except FsError as e:
+            if e.code != Code.META_EXISTS:
+                raise
+            # leftovers of a crashed save of the SAME step: restart
+            self._meta.remove(tpath, recursive=True)
+            self._meta.mkdirs(tpath, recursive=True)
+
+    def _save_ranks(self, tree, step: int) -> Manifest:
+        """``save`` on every rank of the default process group (see the
+        module docstring)."""
+        import torch.distributed as dist
+
+        rank, world = dist.get_rank(), dist.get_world_size()
+        t0 = time.perf_counter()
+        session: Optional[SaveSession] = None
+        ready: List[Optional[Tuple[int, str]]] = [None]
+        if rank == 0:
+            try:
+                if self._exists(step):
+                    raise _err(Code.META_EXISTS, step_dir(self.root, step))
+                session = SaveSession(self._kv, self.root, step,
+                                      self._client_id, self._ttl,
+                                      self._clock)
+                session.acquire()
+                with tagged(TrafficClass.CKPT):
+                    self._make_tmp(step)
+            except BaseException as e:
+                ready = [_failure(e)]
+        try:
+            dist.broadcast_object_list(ready, src=0)
+            _raise_first([(0, ready[0])], "save setup")
+            mine_crcs: Tuple = (None, [])
+            manifest = None
+            try:
+                manifest, mine = self._plan_ranks(tree, step, rank)
+                with tagged(TrafficClass.CKPT):
+                    crcs = self._write_mine(manifest, mine)
+                mine_crcs = (None, [(idx, crc) for (idx, _), crc
+                                    in zip(mine, crcs)])
+            except BaseException as e:
+                mine_crcs = (_failure(e), [])
+            dist.barrier()
+            gathered: List = [None] * world
+            dist.all_gather_object(gathered, mine_crcs)
+            _raise_first([(r, g[0]) for r, g in enumerate(gathered)],
+                         "shard write")
+            done: List[Optional[Tuple[int, str]]] = [None]
+            if rank == 0:
+                try:
+                    for _, pairs in gathered:
+                        for idx, crc in pairs:
+                            manifest.shards[idx].crc = int(crc)
+                    with tagged(TrafficClass.CKPT):
+                        self._commit_manifest(manifest)
+                except BaseException as e:
+                    done = [_failure(e)]
+            dist.broadcast_object_list(done, src=0)
+            dist.barrier()
+            _raise_first([(0, done[0])], "commit")
+            for _, pairs in gathered:
+                for idx, crc in pairs:
+                    manifest.shards[idx].crc = int(crc)
+        finally:
+            if session is not None:
+                session.release()
+        self._save_ms.record((time.perf_counter() - t0) * 1e3)
+        return manifest
 
     def _exists(self, step: int) -> bool:
         try:

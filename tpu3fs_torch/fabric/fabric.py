@@ -14,7 +14,11 @@ The port's own copy of ``tpu3fs/fabric/fabric.py``. ``Fabric(cfg, device)``
 resolves its device once (the card unless the caller asks for the CPU) and
 hands it to every storage service, target, client and EC rebuild worker it
 builds, so the stripe codec and every chunk checksum run there. The ICI
-chain transport and the mesh rebuild are not ported and raise.
+chain transport and the mesh rebuild run on a ``LocalMesh``
+(``parallel.make_storage_mesh(..., devices=...)``): one process driving a
+grid of devices, as this fabric is one process hosting every node. A
+process-group ``DeviceMesh`` raises: its collectives need one process a
+rank.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from tpu3fs_torch.client.file_io import FileIoClient
 from tpu3fs_torch.client.storage_client import StorageClient
 from tpu3fs_torch.device import resolve_device
 from tpu3fs_torch.kv import MemKVEngine
+from tpu3fs_torch.parallel.mesh import require_local_mesh
 from tpu3fs_torch.meta.store import ChainAllocator, MetaStore
 from tpu3fs_torch.mgmtd.service import Mgmtd, MgmtdConfig
 from tpu3fs_torch.mgmtd.types import LocalTargetState, NodeType, PublicTargetState
@@ -88,8 +93,8 @@ class SystemSetupConfig:
     # chain_write_step collective (storage/ici_chain.py) instead of the
     # per-hop messenger — the intra-pod serving mode. Requires every
     # chain's targets on one node (pass num_storage_nodes=1) and the
-    # mesh's ``chain`` axis equal to num_replicas. Not ported: anything
-    # but "messenger", or a mesh, raises (ROADMAP M8).
+    # mesh's ``chain`` axis equal to num_replicas. The mesh is a
+    # LocalMesh; a process-group DeviceMesh raises (ROADMAP M8).
     chain_transport: str = "messenger"
     mesh: object = None
     # a qos.QosConfig: every storage node gets a QosManager over it
@@ -129,10 +134,9 @@ class Fabric:
 
     def __init__(self, cfg: Optional[SystemSetupConfig] = None, device=None):
         self.cfg = cfg or SystemSetupConfig()
-        if self.cfg.chain_transport != "messenger" or self.cfg.mesh is not None:
-            raise NotImplementedError(
-                "the ICI chain transport over a mesh (storage/ici_chain.py) "
-                "is not ported: it waits for the multi-card slice, ROADMAP M8")
+        require_local_mesh(self.cfg.mesh, "the ICI chain transport", "M8")
+        if self.cfg.chain_transport == "ici" and self.cfg.mesh is None:
+            raise ValueError("the ici chain transport needs a mesh")
         self.device = resolve_device(device)
         self.clock = FabricClock()
         self.kv = MemKVEngine()
@@ -220,6 +224,12 @@ class Fabric:
             self.chain_ids.append(chain_id)
         self.mgmtd.upload_chain_table(1, self.chain_ids)
         self.heartbeat_all()
+        if cfg.chain_transport == "ici":
+            from tpu3fs_torch.storage.ici_chain import IciChainReplicator
+
+            for node in self.nodes.values():
+                node.service.set_ici_replicator(
+                    IciChainReplicator(cfg.mesh))
 
     # -- plumbing -----------------------------------------------------------
     def close(self) -> None:
@@ -535,15 +545,11 @@ class Fabric:
     def resync_all(self, rounds: int = 4, *, mesh=None) -> int:
         """Run resync workers on all live nodes until chains converge.
         CR chains use full-chunk-replace copying; EC chains rebuild the
-        recovering shard on the fabric's device. The mesh rebuild is not
-        ported: a ``mesh`` raises (ROADMAP M7)."""
+        recovering shard on the fabric's device, or, with a ``LocalMesh``,
+        through ``parallel.rebuild_lost_shard`` over it."""
         from tpu3fs_torch.storage.ec_resync import EcResyncWorker
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "the EC mesh rebuild (parallel.rebuild over one process per "
-                "card) is not ported: it waits for the multi-card slice, "
-                "ROADMAP M7")
+        require_local_mesh(mesh, "the EC mesh rebuild", "M7")
 
         moved = 0
         for _ in range(rounds):
@@ -551,7 +557,7 @@ class Fabric:
                 if node.alive:
                     moved += ResyncWorker(node.service, self.send).run_once()
                     moved += EcResyncWorker(
-                        node.service, self.send,
+                        node.service, self.send, mesh=mesh,
                         device=self.device).run_once()
             self.tick()
             if all(

@@ -1,11 +1,12 @@
 """EC rebuild worker: reconstruct a recovering target's shards on device.
 
-The port's own copy of ``tpu3fs/storage/ec_resync.py``, on one device:
-the worker's ``device`` runs the decode (K1, or K3 for a single loss) and
-the rebuilt shards' CRCs (K2). The mesh branch (the decode inside
-``parallel.rebuild.rebuild_lost_shard``'s all-gather) is not ported: it
-needs one process per rank, and one card holds one NCCL rank, so a mesh
-raises ``NotImplementedError`` (ROADMAP M7/M8).
+The port's own copy of ``tpu3fs/storage/ec_resync.py``: the worker's
+``device`` runs the decode (K1, or K3 for a single loss) and the rebuilt
+shards' CRCs (K2). With a ``LocalMesh`` the decode runs inside
+``parallel.rebuild.rebuild_lost_shard`` over it (the survivors gathered
+onto the decoding position's device); a process-group ``DeviceMesh``
+raises ``NotImplementedError``: the worker runs in one process (ROADMAP
+M7/M8).
 
 The CR chains recover by full-chunk-replace copying from a chain peer
 (tpu3fs/storage/resync.py, ref src/storage/sync/ResyncWorker.cc). EC chains
@@ -31,6 +32,7 @@ import numpy as np
 
 from tpu3fs_torch.device import resolve_device
 from tpu3fs_torch.mgmtd.types import ChainInfo, PublicTargetState, RoutingInfo
+from tpu3fs_torch.parallel.mesh import require_local_mesh
 from tpu3fs_torch.storage.craq import Messenger, ReadReq, ShardWriteReq, StorageService
 from tpu3fs_torch.storage.types import ChunkId, ChunkMeta
 from tpu3fs_torch.utils.result import Code, FsError
@@ -41,11 +43,9 @@ class EcResyncWorker:
                  batch_stripes: int = 64, mesh=None, device=None):
         from tpu3fs_torch.monitor.recorder import CounterRecorder, ValueRecorder
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "EcResyncWorker's mesh rebuild (parallel.rebuild over one "
-                "process per rank) is not ported: it waits for the "
-                "multi-card slice, ROADMAP M7/M8")
+        require_local_mesh(mesh, "EcResyncWorker's mesh rebuild", "M7/M8")
+        # optional device mesh: rebuild through parallel.rebuild's gather
+        self._mesh = mesh
         self.device = resolve_device(device)
         if service.device != self.device:
             raise ValueError(f"worker on {self.device}, service on "
@@ -809,6 +809,31 @@ class EcResyncWorker:
                     replies[i] = None
         return replies
 
+    def _reconstruct(self, codec, present, lost, surv: np.ndarray) -> np.ndarray:
+        """(B, k, S) -> (B, len(lost), S): through the mesh rebuild when a
+        mesh was given, else the codec's own decode on the worker's
+        device — both via RSCode.reconstruct_fn."""
+        if self._mesh is not None:
+            import torch
+
+            from tpu3fs_torch.parallel.rebuild import rebuild_lost_shard
+
+            n = codec.k + codec.m
+            B, _, S = surv.shape
+            full = np.zeros((n, B, S), dtype=np.uint8)
+            for row, j in enumerate(present):
+                full[j] = surv[:, row, :]
+            # rebuild_lost_shard derives its survivor set as "everything not
+            # lost" — so every shard NOT in our present set must be declared
+            # lost, or its zero-filled row would be decoded as real data
+            mesh_lost = sorted(set(range(n)) - set(present))
+            out = rebuild_lost_shard(
+                self._mesh, torch.from_numpy(full), codec.rs, mesh_lost)
+            out = np.moveaxis(out.cpu().numpy(), 0, 1)  # (B, mesh_lost, S)
+            cols = [mesh_lost.index(j) for j in lost]
+            return out[:, cols, :]
+        return codec.reconstruct_batch(present, lost, surv)
+
     def _rebuild_batch(self, routing: RoutingInfo, chain: ChainInfo,
                        chunk_ids: List[ChunkId], lost_shard: int,
                        node_id: int, target_id: int,
@@ -874,7 +899,7 @@ class EcResyncWorker:
                 ])
                 for i in idxs
             ])  # (B, k, S)
-            rebuilt = codec.reconstruct_batch(present, (lost_shard,), surv)
+            rebuilt = self._reconstruct(codec, present, (lost_shard,), surv)
             for row, i in enumerate(idxs):
                 cid, ver, shards, _, logical = gathered[i]
                 raw = rebuilt[row, 0].tobytes()
