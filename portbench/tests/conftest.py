@@ -1,0 +1,3 @@
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
