@@ -11,8 +11,8 @@ envelope), and derives the two operator views:
   times and a STAGE COVERAGE line — the fraction of the root
   (client-observed) latency that attributed stage spans account for.
   Coverage sums additive stages only: container stages (``collect``,
-  ``forward``) hold their callee's whole pipeline and would double
-  count.
+  ``forward``, and the EC reads' ``fetch`` and ``fetch_degraded``) hold
+  their callee's whole pipeline and would double count.
 - ``top_traces`` / ``stage_percentiles``: slowest ops and per-stage
   p50/p90/p99 across every loaded trace — the trace-top view.
 
@@ -30,7 +30,8 @@ from tpu3fs_torch.analytics.trace import read_records
 
 # stages whose duration CONTAINS downstream work (excluded from the
 # additive coverage sum; see module doc)
-CONTAINER_STAGES = frozenset({"collect", "forward"})
+CONTAINER_STAGES = frozenset({"collect", "forward", "fetch",
+                              "fetch_degraded"})
 
 
 def span_files(paths: Iterable[str]) -> List[str]:

@@ -35,6 +35,43 @@ the same columnar sink the storage event trace uses — one file set per
 process; ``analytics.assemble`` joins the files of N processes back into
 per-trace trees. Overhead discipline: with no tracer configured the only
 cost on any hot path is one ContextVar read returning None.
+
+What the port adds to the reference's schema and sinks:
+
+- ``SpanEvent.t_ns``: the span's start on ``time.perf_counter_ns``, the
+  clock a device trace (``torch.profiler``) is put on in the same
+  process, so a span lines up with the card's copies and kernels; 0 where
+  an emitter clocks its wall another way (the storage update rounds).
+  ``ts`` stays the wall clock for the cross-process join.
+- A nested client op (a ``root_span`` inside another: ``client.read_stripe``
+  inside ``client.read``) gets a span of its own under the outer op, and
+  the stages and RPC hops inside it parent to it.
+- The IN-MEMORY SINK: ``configure(memory=True)`` keeps the spans the
+  flush decision keeps (the rows the file sink gets) in a list, with or
+  without a directory, for a reader in the same process;
+  ``drain()`` returns ``(events, dropped)`` and empties both. Past
+  ``MEMORY_CAP`` events new spans are dropped and counted.
+  ``configure(memory=False)`` turns it off and discards what it held.
+
+The stages of the port's EC read path (one reader thread, so a client's
+stages never overlap; in-process dispatch runs the server's stages
+inside ``fetch``):
+
+- ``client.read_stripe`` / ``client.batch_read``: ``fetch``, the first
+  round of shard reads; ``fetch_degraded``, the degraded round, the
+  survivors' reads.
+- ``ec.decode``: ``gather``, the replies to the survivors' host array;
+  ``h2d``, their copy to the card (pageable: it blocks the host);
+  ``launch``, the decode kernel's enqueue; ``d2h``, the copy back, which
+  waits for the kernel (the device trace splits the two).
+- ``client.read_stripe`` / ``client.read``: ``assemble``, a stripe's
+  bytes joined and sliced; a call's stripes joined.
+- ``storage.batch_read``: ``admit``, the server's read admission;
+  ``engine``, one target group's engine crossing.
+
+``fetch`` and ``fetch_degraded`` hold downstream work, like ``collect``
+and ``forward``: ``analytics.assemble`` leaves them out of a trace's
+stage coverage.
 """
 
 from __future__ import annotations
@@ -42,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
+import random
 import threading
 import time
 from dataclasses import dataclass
@@ -56,6 +94,10 @@ WIRE_VERSION = "t1"
 # wire flag bits (TraceContext.flags on the envelope)
 FLAG_SAMPLED = 1
 FLAG_SLOW = 2      # forced capture: every hop flushes
+
+# the in-memory sink's bound, in events: ten times the spans of a 51 s
+# window of the degraded read (about 105,000 on an H100)
+MEMORY_CAP = 1 << 20
 
 
 @dataclass
@@ -73,6 +115,7 @@ class SpanEvent:
     stage: str = ""        # "" for op spans; stage name for stage spans
     ts: float = 0.0        # wall-clock start (time.time; cross-process join)
     dur_us: float = 0.0
+    t_ns: int = 0          # start on time.perf_counter_ns (in-process)
     code: int = 0          # status code (0 = OK)
     nbytes: int = 0
     tclass: str = ""       # QoS traffic class, when tagged
@@ -142,8 +185,16 @@ def decode_wire(message: str) -> Optional[TraceContext]:
                         slow=bool(flags & FLAG_SLOW))
 
 
+# span and trace ids: 64 random bits from a generator seeded from the
+# system's entropy and reseeded in a forked child, so that a span costs no
+# syscall (os.urandom an id took 18% of a traced degraded read's rate on
+# an H100 host); a trace id stays uniform for sampled_of.
+_ids = random.Random()
+os.register_at_fork(after_in_child=_ids.seed)
+
+
 def _new_id() -> str:
-    return os.urandom(8).hex()
+    return format(_ids.getrandbits(64), "016x")
 
 
 def sampled_of(trace_id: str, rate: float) -> bool:
@@ -196,6 +247,10 @@ class Tracer:
         self._log = None
         self._log_dir = None
         self._lock = threading.Lock()
+        # the in-memory sink: at most _mem_cap flushed events until drained
+        self._mem: List[SpanEvent] = []
+        self._mem_cap = 0
+        self._mem_dropped = 0
         # slow-op hooks (the flight recorder's black-box feed): called
         # with the op's accumulated events whenever an op crosses the
         # slow threshold, independent of the sampling decision
@@ -207,7 +262,11 @@ class Tracer:
                   sample_rate: Optional[float] = None,
                   slow_op_ms: Optional[float] = None,
                   enabled: Optional[bool] = None,
-                  flush_rows: int = 512) -> "Tracer":
+                  flush_rows: int = 512,
+                  memory: Optional[bool] = None) -> "Tracer":
+        """``memory``: True keeps up to ``MEMORY_CAP`` flushed events in
+        memory for ``drain()``, with or without a directory; False turns
+        the in-memory sink off and discards what it held."""
         with self._lock:
             if service is not None:
                 self.service = service
@@ -225,9 +284,14 @@ class Tracer:
                 self._log = StructuredTraceLog("spans", directory,
                                                flush_rows=flush_rows)
                 self._log_dir = directory
+            if memory is not None:
+                self._mem_cap = MEMORY_CAP if memory else 0
+                if not memory:
+                    self._mem, self._mem_dropped = [], 0
+            has_sink = self._log is not None or self._mem_cap > 0
             if enabled is not None:
-                self.enabled = bool(enabled) and self._log is not None
-            elif self._log is not None:
+                self.enabled = bool(enabled) and has_sink
+            elif has_sink:
                 self.enabled = True
         return self
 
@@ -256,6 +320,14 @@ class Tracer:
         if log is not None:
             log.flush()
 
+    def drain(self) -> Tuple[List[SpanEvent], int]:
+        """-> (the events the in-memory sink holds, the events it dropped
+        at its cap), both taken and reset."""
+        with self._lock:
+            events, self._mem = self._mem, []
+            dropped, self._mem_dropped = self._mem_dropped, 0
+        return events, dropped
+
     @property
     def span_paths(self) -> List[str]:
         log = self._log
@@ -276,19 +348,24 @@ class Tracer:
 
     def _flush_events(self, events: Sequence[SpanEvent],
                       slow: bool) -> None:
-        log = self._log
-        if log is None:
-            return
-        for ev in events:
-            if slow:
+        if slow:
+            for ev in events:
                 ev.slow = True
-            # SpanEvent is flat: its __dict__ IS the columnar row (skips
-            # the per-event reflection walk on the flush path)
-            log.append_row(dict(ev.__dict__))
+        log = self._log
+        if log is not None:
+            for ev in events:
+                # SpanEvent is flat: its __dict__ IS the columnar row (skips
+                # the per-event reflection walk on the flush path)
+                log.append_row(dict(ev.__dict__))
+        if self._mem_cap:
+            with self._lock:
+                room = max(0, self._mem_cap - len(self._mem))
+                self._mem.extend(events[:room])
+                self._mem_dropped += max(0, len(events) - room)
 
     def end_op(self, ctx: TraceContext, op: str, ts: float, dur_s: float,
                *, code: int = 0, nbytes: int = 0,
-               tclass: str = "", tenant: str = "") -> None:
+               tclass: str = "", tenant: str = "", t_ns: int = 0) -> None:
         """Append the op span for a NESTED op (the flush decision belongs
         to whichever op owns the accumulator — the process root). An
         empty tenant resolves from the ambient scope, so every op span
@@ -302,15 +379,15 @@ class Tracer:
             parent_id=ctx.parent_id, service=self.service, node=self.node,
             op=op, stage="", ts=ts, dur_us=dur_s * 1e6, code=code,
             nbytes=nbytes, tclass=tclass, tenant=tenant,
-            sampled=ctx.sampled))
+            sampled=ctx.sampled, t_ns=t_ns))
 
     def finish_op(self, ctx: TraceContext, op: str, ts: float,
                   dur_s: float, *, code: int = 0, nbytes: int = 0,
-                  tclass: str = "", tenant: str = "") -> None:
+                  tclass: str = "", tenant: str = "", t_ns: int = 0) -> None:
         """Emit the op span and make the flush-or-drop decision for every
         event the op accumulated in this process."""
         self.end_op(ctx, op, ts, dur_s, code=code, nbytes=nbytes,
-                    tclass=tclass, tenant=tenant)
+                    tclass=tclass, tenant=tenant, t_ns=t_ns)
         is_slow = ctx.slow or dur_s * 1e6 >= self.slow_op_us
         if is_slow and self._slow_hooks:
             for hook in self._slow_hooks:
@@ -383,7 +460,8 @@ def round_traces() -> Tuple[TraceContext, ...]:
 
 
 def add_span(ctx: Optional[TraceContext], op: str, stage: str, ts: float,
-             dur_s: float, *, code: int = 0, nbytes: int = 0) -> None:
+             dur_s: float, *, code: int = 0, nbytes: int = 0,
+             t_ns: int = 0) -> None:
     """Append one already-measured stage span to a context (no-op on
     None): the storage pipeline measures its stage/forward/commit walls
     anyway — tracing reuses those numbers instead of re-clocking."""
@@ -394,7 +472,7 @@ def add_span(ctx: Optional[TraceContext], op: str, stage: str, ts: float,
         trace_id=ctx.trace_id, span_id=_new_id(), parent_id=ctx.span_id,
         service=t.service, node=t.node, op=op, stage=stage, ts=ts,
         dur_us=dur_s * 1e6, code=code, nbytes=nbytes,
-        sampled=ctx.sampled))
+        sampled=ctx.sampled, t_ns=t_ns))
 
 
 def add_span_multi(ctxs: Sequence[TraceContext], op: str, stage: str,
@@ -404,48 +482,83 @@ def add_span_multi(ctxs: Sequence[TraceContext], op: str, stage: str,
         add_span(ctx, op, stage, ts, dur_s, code=code, nbytes=nbytes)
 
 
-@contextlib.contextmanager
+class _Off:
+    """The span of an untraced block: one shared object, no clock read."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """A traced block's stage span, clocked at entry and at exit."""
+
+    __slots__ = ("ctx", "op", "stage", "nbytes", "ts", "t0")
+
+    def __init__(self, ctx: TraceContext, op: str, stage: str, nbytes: int):
+        self.ctx, self.op, self.stage, self.nbytes = ctx, op, stage, nbytes
+
+    def __enter__(self) -> TraceContext:
+        self.ts = time.time()
+        self.t0 = time.perf_counter_ns()
+        return self.ctx
+
+    def __exit__(self, *exc) -> bool:
+        add_span(self.ctx, self.op, self.stage, self.ts,
+                 (time.perf_counter_ns() - self.t0) / 1e9,
+                 nbytes=self.nbytes, t_ns=self.t0)
+        return False
+
+
 def span(op: str, stage: str, *, nbytes: int = 0):
     """Clock a block as a stage span under the current context (no-op —
-    not even a clock read — when untraced)."""
+    not even a clock read or a new object — when untraced)."""
     ctx = _trace_var.get()
-    if ctx is None:
-        yield None
-        return
-    ts = time.time()
-    t0 = time.perf_counter()
-    try:
-        yield ctx
-    finally:
-        add_span(ctx, op, stage, ts, time.perf_counter() - t0,
-                 nbytes=nbytes)
+    return _OFF if ctx is None else _Span(ctx, op, stage, nbytes)
 
 
-@contextlib.contextmanager
+class _OpSpan:
+    """A client op's span over a block that runs under its context: a
+    nested op's ends under the outer op; a root's makes the flush-or-drop
+    decision for the whole op."""
+
+    __slots__ = ("ctx", "op", "nbytes", "nested", "ts", "t0", "token")
+
+    def __init__(self, ctx: TraceContext, op: str, nbytes: int,
+                 nested: bool):
+        self.ctx, self.op, self.nbytes, self.nested = ctx, op, nbytes, nested
+
+    def __enter__(self) -> TraceContext:
+        self.ts = time.time()
+        self.t0 = time.perf_counter_ns()
+        self.token = _trace_var.set(self.ctx)
+        return self.ctx
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        _trace_var.reset(self.token)
+        end = _TRACER.end_op if self.nested else _TRACER.finish_op
+        end(self.ctx, self.op, self.ts,
+            (time.perf_counter_ns() - self.t0) / 1e9,
+            code=0 if exc_type is None else -1, nbytes=self.nbytes,
+            t_ns=self.t0)
+        return False
+
+
 def root_span(op: str, *, nbytes: int = 0, force: bool = False):
     """Client-side op boundary: joins the current trace when one is
-    active (nested client ops emit a plain span), otherwise head-starts a
-    trace — sampling decision, envelope stamping downstream, flush-or-
-    drop at exit (incl. slow-op capture). Yields the context or None."""
+    active (a nested client op: its span parents to the outer op's, and
+    the spans inside it parent to it), otherwise head-starts a trace —
+    sampling decision, envelope stamping downstream, flush-or-drop at
+    exit (incl. slow-op capture). Entering yields the context or None."""
     outer = _trace_var.get()
     if outer is not None:
-        with span(op, "", nbytes=nbytes):
-            yield outer
-        return
+        return _OpSpan(outer.child(), op, nbytes, nested=True)
     ctx = _TRACER.start_trace(force=force)
-    if ctx is None:
-        yield None
-        return
-    ts = time.time()
-    t0 = time.perf_counter()
-    token = _trace_var.set(ctx)
-    code = 0
-    try:
-        yield ctx
-    except BaseException:
-        code = -1
-        raise
-    finally:
-        _trace_var.reset(token)
-        _TRACER.finish_op(ctx, op, ts, time.perf_counter() - t0,
-                          code=code, nbytes=nbytes)
+    return _OFF if ctx is None else _OpSpan(ctx, op, nbytes, nested=False)

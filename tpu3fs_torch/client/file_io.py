@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Iterable, List, Optional, Tuple
 
+from tpu3fs_torch.analytics import spans as _spans
 from tpu3fs_torch.client.storage_client import StorageClient
 from tpu3fs_torch.meta.types import Inode, Layout
 from tpu3fs_torch.ops.crc32c import combine_spans
@@ -362,7 +363,8 @@ class FileIoClient:
                 parts.append(b"\x00" * (n - len(data)))
         if not any_data and inode.length == 0:
             return b""
-        return b"".join(parts)
+        with _spans.span("client.read", "assemble"):
+            return b"".join(parts)
 
     def read(self, inode: Inode, offset: int, size: int) -> bytes:
         """POSIX-style read: holes and short chunks inside the file read as
@@ -371,14 +373,15 @@ class FileIoClient:
         arm) the readahead window."""
         if inode.length:
             size = max(0, min(size, inode.length - offset))
-        pf = self._prefetch
-        if pf is None:
-            return self._read_direct(inode, offset, size)
-        data = pf.lookup(inode.id, offset, size)
-        if data is None:
-            data = self._read_direct(inode, offset, size)
-        pf.record_read(inode, offset, size)
-        return data
+        with _spans.root_span("client.read", nbytes=size):
+            pf = self._prefetch
+            if pf is None:
+                return self._read_direct(inode, offset, size)
+            data = pf.lookup(inode.id, offset, size)
+            if data is None:
+                data = self._read_direct(inode, offset, size)
+            pf.record_read(inode, offset, size)
+            return data
 
     def _read_direct(self, inode: Inode, offset: int, size: int) -> bytes:
         """The uncached read path (also the prefetcher's fetch fn; size is

@@ -25,6 +25,7 @@ from collections import defaultdict
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
+from tpu3fs_torch.analytics import spans as _spans
 from tpu3fs_torch.device import resolve_device
 from tpu3fs_torch.mgmtd.types import ChainInfo, NodeType, PublicTargetState, RoutingInfo
 from tpu3fs_torch.storage.craq import (
@@ -178,6 +179,8 @@ class StorageClient:
 
         self._ec_degraded = CounterRecorder("ec.degraded_read")
         self._ec_degraded_ms = DistributionRecorder("ec.degraded_read_ms")
+        # bytes of the OK shard replies the EC reads received, both rounds
+        self._ec_read_shard_bytes = CounterRecorder("ec.read_shard_bytes")
         self._ec_parity_rmw = CounterRecorder("ec.parity_rmw")
         self._ec_rmw_fallback = CounterRecorder("ec.parity_rmw_fallback")
         self._ec_encode_gibps = ValueRecorder("ec.encode_gibps")
@@ -571,8 +574,6 @@ class StorageClient:
         """Traced entry: see _batch_read_op. The root span head-samples a
         trace when none is active (tpu3fs/analytics/spans.py); sampled or
         slow ops capture their whole cross-process stage breakdown."""
-        from tpu3fs_torch.analytics import spans as _spans
-
         with _spans.root_span("client.batch_read"), self._op_scope():
             return self._batch_read_op(reqs)
 
@@ -629,7 +630,8 @@ class StorageClient:
             wire.append((node.node_id, ReadReq(
                 req.chain_id, req.chunk_id, req.offset, req.length, target_id
             )))
-        wire_replies = self._issue_wire_reads(wire)
+        with _spans.span("client.batch_read", "fetch"):
+            wire_replies = self._issue_wire_reads(wire)
         shard_replies: Dict[int, Dict[int, ReadReply]] = {
             i: {} for i in ec_specs}
         for tag, r in zip(tags, wire_replies):
@@ -637,6 +639,8 @@ class StorageClient:
                 replies[tag[1]] = r
             else:
                 shard_replies[tag[1]][tag[2]] = r
+        self._count_shard_bytes(
+            r for tag, r in zip(tags, wire_replies) if tag[0] == "ec")
         if ec_specs:
             self._finish_stripe_reads(
                 reqs, replies, ec_specs, shard_replies, routing)
@@ -780,8 +784,6 @@ class StorageClient:
         """Traced entry: see _batch_write_op. The root span is the
         client-observed latency the trace assembler's stage coverage is
         measured against (docs/observability.md)."""
-        from tpu3fs_torch.analytics import spans as _spans
-
         with _spans.root_span(
                 "client.batch_write",
                 nbytes=sum(len(w[3]) for w in writes)), self._op_scope():
@@ -1101,8 +1103,6 @@ class StorageClient:
         chunk_size: int = 1 << 20,
     ) -> List[UpdateReply]:
         """Traced entry: see _write_stripes_op."""
-        from tpu3fs_torch.analytics import spans as _spans
-
         with _spans.root_span("client.write_stripes",
                               nbytes=sum(len(d) for _, d in items)), \
                 self._op_scope():
@@ -1371,8 +1371,6 @@ class StorageClient:
         """Sub-stripe write via DELTA PARITY (see _write_stripe_rmw);
         every fast-path decline counts on ec.parity_rmw_fallback so the
         monitor can answer "is the RMW path actually engaging"."""
-        from tpu3fs_torch.analytics import spans as _spans
-
         with _spans.root_span("client.write_stripe_rmw",
                               nbytes=len(part)):
             out = self._write_stripe_rmw(chain_id, chunk_id, in_off, part,
@@ -1620,13 +1618,15 @@ class StorageClient:
         vers = {r.commit_ver for r in rs}
         if len(vers) != 1:
             return None
-        whole = b"".join(  # copy-ok: range assembly of shard payloads
-            bytes(direct[j].data).ljust(S, b"\x00")  # copy-ok: pad to slot
-            for j in range(j0, j1))
         lo = spec["offset"] - j0 * S
+        with _spans.span("client.read_stripe", "assemble"):
+            whole = b"".join(  # copy-ok: range assembly of shard payloads
+                bytes(direct[j].data).ljust(S, b"\x00")  # copy-ok: pad to slot
+                for j in range(j0, j1))
+            data = whole[lo : lo + spec["length"]]
         return ReadReply(
             Code.OK,
-            data=whole[lo : lo + spec["length"]],
+            data=data,
             commit_ver=vers.pop(),
             logical_len=self._stripe_logical(spec, direct),
         )
@@ -1638,54 +1638,57 @@ class StorageClient:
         holding a k-quorum. CHUNK_NOT_FOUND when every shard is missing;
         None when no version is decodable yet (mixed versions mid-write —
         the caller's ladder retries)."""
+        import numpy as np
+
         from tpu3fs_torch.ops.stripe import get_codec
 
         k, m, S = spec["k"], spec["m"], spec["S"]
         j0, j1 = spec["j0"], spec["j1"]
-        by_ver: Dict[int, Dict[int, bytes]] = defaultdict(dict)
-        all_missing = True
-        for j, r in replies.items():
-            if r is None:
-                continue
-            if r.ok:
-                # the decode path pads/joins/ndarray-stacks shard
-                # payloads: materialize any zero-copy transport view once
-                by_ver[r.commit_ver][j] = bytes(r.data)  # copy-ok: decode input
-                all_missing = False
-            elif r.code != Code.CHUNK_NOT_FOUND:
-                all_missing = False
-        if all_missing:
-            return ReadReply(Code.CHUNK_NOT_FOUND)
-        usable = [v for v, g in by_ver.items() if len(g) >= k]
-        if not usable:
-            return None
-        import numpy as np
-
-        ver = max(usable)
-        group = by_ver[ver]
-        present = sorted(group)[:k]
-        lost = [j for j in range(j0, j1) if j not in present]
-        surv = np.stack([
-            np.frombuffer(
-                group[j].ljust(S, b"\x00"), dtype=np.uint8)
-            for j in present
-        ])
+        with _spans.span("ec.decode", "gather"):
+            by_ver: Dict[int, Dict[int, bytes]] = defaultdict(dict)
+            all_missing = True
+            for j, r in replies.items():
+                if r is None:
+                    continue
+                if r.ok:
+                    # the decode path pads/joins/ndarray-stacks shard
+                    # payloads: materialize any zero-copy transport view once
+                    by_ver[r.commit_ver][j] = bytes(r.data)  # copy-ok: decode input
+                    all_missing = False
+                elif r.code != Code.CHUNK_NOT_FOUND:
+                    all_missing = False
+            if all_missing:
+                return ReadReply(Code.CHUNK_NOT_FOUND)
+            usable = [v for v, g in by_ver.items() if len(g) >= k]
+            if not usable:
+                return None
+            ver = max(usable)
+            group = by_ver[ver]
+            present = sorted(group)[:k]
+            lost = [j for j in range(j0, j1) if j not in present]
+            surv = np.stack([
+                np.frombuffer(
+                    group[j].ljust(S, b"\x00"), dtype=np.uint8)
+                for j in present
+            ])
+            parts: Dict[int, bytes] = {
+                j: group[j].ljust(S, b"\x00") for j in present
+                if j0 <= j < j1
+            }
         codec = get_codec(k, m, S, self.device)
-        parts: Dict[int, bytes] = {
-            j: group[j].ljust(S, b"\x00") for j in present
-            if j0 <= j < j1
-        }
         if lost:
             rebuilt = codec.reconstruct_batch(present, lost, surv[None])[0]
+        lo = spec["offset"] - j0 * S
+        with _spans.span("client.read_stripe", "assemble"):
             for i, j in enumerate(lost):
                 parts[j] = rebuilt[i].tobytes()
-        whole = b"".join(  # copy-ok: range assembly of decoded shards
-            parts[j] for j in range(j0, j1))
-        lo = spec["offset"] - j0 * S
+            whole = b"".join(  # copy-ok: range assembly of decoded shards
+                parts[j] for j in range(j0, j1))
+            data = whole[lo : lo + spec["length"]]
         ok_replies = {j: r for j, r in replies.items()
                       if r is not None and r.ok and r.commit_ver == ver}
         return ReadReply(
-            Code.OK, data=whole[lo : lo + spec["length"]], commit_ver=ver,
+            Code.OK, data=data, commit_ver=ver,
             logical_len=self._stripe_logical(spec, ok_replies, group, parts))
 
     def _finish_stripe_reads(self, reqs, replies, ec_specs,
@@ -1724,12 +1727,18 @@ class StorageClient:
                 tags.append((i, j))
                 wire.append((node.node_id, ReadReq(
                     chain.chain_id, reqs[i].chunk_id, 0, -1, t.target_id)))
-        for (i, j), r in zip(tags, self._issue_wire_reads(wire)):
+        with _spans.span("client.batch_read", "fetch_degraded"):
+            got = self._issue_wire_reads(wire)
+        for (i, j), r in zip(tags, got):
             shard_replies[i][j] = r
-        dt_ms = (time.monotonic() - t0) * 1000.0
+        self._count_shard_bytes(got)
+        fetch_s = time.monotonic() - t0
         for i in degraded:
+            t1 = time.monotonic()
             out = self._stripe_degraded(ec_specs[i], shard_replies[i])
-            if out is None:
+            if out is not None and out.ok:
+                self._note_degraded(fetch_s + time.monotonic() - t1)
+            elif out is None:
                 # no decodable version in this snapshot (write/rebuild in
                 # flight): the single-op ladder retries with backoff
                 out = self.read_stripe(
@@ -1737,8 +1746,6 @@ class StorageClient:
                     ec_specs[i]["offset"], ec_specs[i]["length"],
                     chunk_size=reqs[i].chunk_size)
             replies[i] = out
-            self._ec_degraded.add()
-            self._ec_degraded_ms.record(dt_ms)
 
     def read_stripe(
         self,
@@ -1754,9 +1761,22 @@ class StorageClient:
         shard, gather any k same-version survivors and reconstruct
         (degraded read). Shares its planning/assembly/decode helpers with
         batch_read so the two paths cannot drift apart."""
-        with self._op_scope():
+        with _spans.root_span("client.read_stripe", nbytes=max(0, length)), \
+                self._op_scope():
             return self._read_stripe_op(chain_id, chunk_id, offset, length,
                                         chunk_size=chunk_size)
+
+    def _count_shard_bytes(self, replies) -> None:
+        """ec.read_shard_bytes: the bytes of a round's OK shard replies."""
+        n = sum(len(r.data) for r in replies if r.ok)
+        if n:
+            self._ec_read_shard_bytes.add(n)
+
+    def _note_degraded(self, seconds: float) -> None:
+        """One stripe served by decode: ec.degraded_read, and in
+        ec.degraded_read_ms its survivors' fetch plus its decode."""
+        self._ec_degraded.add()
+        self._ec_degraded_ms.record(seconds * 1000.0)
 
     def _read_stripe_op(
         self,
@@ -1785,9 +1805,11 @@ class StorageClient:
             spec = self._plan_stripe_read(chain, routing, req)
             wire = list(spec["wire"].items())
             direct: Dict[int, ReadReply] = {}
-            for (j, _), r in zip(wire, self._issue_wire_reads(
-                    [entry for _, entry in wire])):
+            with _spans.span("client.read_stripe", "fetch"):
+                got = self._issue_wire_reads([entry for _, entry in wire])
+            for (j, _), r in zip(wire, got):
                 direct[j] = r
+            self._count_shard_bytes(got)
             out = self._stripe_clean(spec, direct)
             if out is not None:
                 return out
@@ -1807,15 +1829,15 @@ class StorageClient:
                     continue
                 extra.append((j, (node.node_id, ReadReq(
                     chain_id, chunk_id, 0, -1, t.target_id))))
-            for (j, _), r in zip(extra, self._issue_wire_reads(
-                    [entry for _, entry in extra])):
+            with _spans.span("client.read_stripe", "fetch_degraded"):
+                got = self._issue_wire_reads([entry for _, entry in extra])
+            for (j, _), r in zip(extra, got):
                 direct[j] = r
+            self._count_shard_bytes(got)
             out = self._stripe_degraded(spec, direct)
             if out is not None:
                 if out.ok:
-                    self._ec_degraded.add()
-                    self._ec_degraded_ms.record(
-                        (time.monotonic() - t0) * 1000.0)
+                    self._note_degraded(time.monotonic() - t0)
                 return out
             # mixed versions / not enough shards yet: transient (a stripe
             # write or rebuild is in flight) — retry

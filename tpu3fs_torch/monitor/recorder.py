@@ -52,15 +52,23 @@ class _Recorder:
 
 
 class CounterRecorder(_Recorder):
-    """Monotonic event counter, reported as a delta per collection window."""
+    """Monotonic event counter, reported as a delta per collection window;
+    ``total`` keeps the count since creation, which ``collect`` does not
+    reset (a reader in the process takes differences of it)."""
 
     def __init__(self, name, tags=None, monitor=None):
         super().__init__(name, tags, monitor)
         self._value = 0
+        self._total = 0
 
     def add(self, n: int = 1) -> None:
         with self._lock:
             self._value += n
+            self._total += n
+
+    @property
+    def total(self) -> int:
+        return self._total
 
     def collect(self, now: float) -> List[Sample]:
         with self._lock:

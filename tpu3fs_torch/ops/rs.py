@@ -21,6 +21,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from tpu3fs_torch.analytics import spans as _spans
 from tpu3fs_torch.device import as_tensor, resolve_device
 from tpu3fs_torch.ops.gf256 import GF
 from tpu3fs_torch.ops.gf2_matmul import gf2_matmul, prepare_matrix
@@ -215,8 +216,12 @@ class RSCode:
         present_shards: (..., k, S) uint8
         returns (..., len(lost_idx), S) uint8 on the codec's device
         """
-        x = as_tensor(present_shards, self.device)
-        return self.reconstruct_fn(present_idx, lost_idx)(x)
+        fn = self.reconstruct_fn(present_idx, lost_idx)
+        # a host array's copy to the card blocks the host (pageable)
+        with _spans.span("ec.decode", "h2d"):
+            x = as_tensor(present_shards, self.device)
+        with _spans.span("ec.decode", "launch"):
+            return fn(x)
 
     def reconstruct_np(self, present_idx: Sequence[int],
                        lost_idx: Sequence[int],

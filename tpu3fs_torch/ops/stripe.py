@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpu3fs_torch.analytics import spans as _spans
 from tpu3fs_torch.device import as_tensor, resolve_device
 from tpu3fs_torch.ops.crc32c import BatchCrc32c, crc32c_many
 from tpu3fs_torch.ops.rs import RSCode
@@ -167,7 +168,9 @@ class StripeCodec:
         """(B, k, S) survivors at present_idx -> (B, len(lost), S) rebuilt."""
         self._check(present, self.k)
         out = self.rs.reconstruct(present_idx, lost_idx, present)
-        return _out(out, not isinstance(present, torch.Tensor))
+        # the copy back waits for the kernel; the device trace splits them
+        with _spans.span("ec.decode", "d2h"):
+            return _out(out, not isinstance(present, torch.Tensor))
 
     def crc_batch(self, shards):
         """(N, S) uint8 -> (N,) uint32."""

@@ -1541,9 +1541,10 @@ class StorageService:
 
         if self._deadline_expired():
             return [ReadReply(Code.DEADLINE_EXCEEDED) for _ in reqs]
-        lease, shed_ms, shed_code = self._admit_read(
-            TrafficClass.FG_READ, cost=max(1, len(reqs)),
-            nbytes=sum(max(0, r.length) for r in reqs))
+        with _spans.span("storage.batch_read", "admit"):
+            lease, shed_ms, shed_code = self._admit_read(
+                TrafficClass.FG_READ, cost=max(1, len(reqs)),
+                nbytes=sum(max(0, r.length) for r in reqs))
         if shed_ms is not None:
             self._read_rec.failed.add(len(reqs))
             return [ReadReply(shed_code, retry_after_ms=shed_ms)
@@ -1585,7 +1586,8 @@ class StorageService:
             ]
             read_fn = (target.engine.batch_read_views if views
                        else target.engine.batch_read)
-            outs = read_fn(items, target.chunk_size)
+            with _spans.span("storage.batch_read", "engine"):
+                outs = read_fn(items, target.chunk_size)
             for i, (code, data, ver, crc, aux) in zip(idxs, outs):
                 if code == Code.OK:
                     self._read_rec.succeeded.add()
