@@ -60,18 +60,32 @@ inside ``fetch``):
 - ``client.read_stripe`` / ``client.batch_read``: ``fetch``, the first
   round of shard reads; ``fetch_degraded``, the degraded round, the
   survivors' reads.
-- ``ec.decode``: ``gather``, the replies to the survivors' host array;
-  ``h2d``, their copy to the card (pageable: it blocks the host);
-  ``launch``, the decode kernel's enqueue; ``d2h``, the copy back, which
-  waits for the kernel (the device trace splits the two).
+- ``ec.decode``: ``gather``, the replies to the survivors' host array
+  (on the card, the client's page-locked staging); ``h2d``, their copy to
+  the card (it blocks the host); ``launch``, the decode kernel's enqueue;
+  ``d2h``, the copy back, which waits for the kernel (the device trace
+  splits the two).
 - ``client.read_stripe`` / ``client.read``: ``assemble``, a stripe's
-  bytes joined and sliced; a call's stripes joined.
+  range cut from its shards' buffers, handed on as parts to the file
+  client (joined and sliced into one ``bytes`` on the public
+  ``read_stripe`` and ``batch_read``); a call's parts joined, the one
+  copy of its bytes.
 - ``storage.batch_read``: ``admit``, the server's read admission;
   ``engine``, one target group's engine crossing.
 
 ``fetch`` and ``fetch_degraded`` hold downstream work, like ``collect``
 and ``forward``: ``analytics.assemble`` leaves them out of a trace's
 stage coverage.
+
+The EC read's counters on each ``StorageClient`` (``CounterRecorder``;
+``total`` counts since creation, which ``collect()`` does not reset):
+
+- ``ec.degraded_read``: stripes served by a decode;
+- ``ec.read_shard_bytes``: bytes of the OK shard replies an EC read
+  received, both rounds, both client paths;
+- ``ec.decode_pinned``: degraded stripes whose survivors the card read
+  from the client's page-locked staging; its share of
+  ``ec.degraded_read`` is 100% on the card and 0 on a CPU device.
 """
 
 from __future__ import annotations

@@ -24,6 +24,14 @@ from tpu3fs_torch.storage.types import Checksum, ChunkId
 from tpu3fs_torch.utils.result import Code, FsError, Status
 
 
+def _reply_parts(reply) -> list:
+    """A read reply's bytes as buffers in file order: an EC stripe read
+    through the storage client's ``*_parts`` entries carries a list of
+    them, any other reply one buffer."""
+    data = reply.data
+    return data if isinstance(data, list) else [data]
+
+
 def _byte_view(data) -> memoryview:
     """A flat byte view of any caller buffer (bytes / bytearray /
     memoryview / C-contiguous ndarray) — the no-copy gather entry of the
@@ -340,7 +348,8 @@ class FileIoClient:
         holes (CHUNK_NOT_FOUND) and short chunks read as zeros, each part
         padded to its slot so later chunks keep their file offsets; an
         untracked-length inode with no chunks at all is true EOF (empty
-        read), not a hole. `pairs` is [(reply, slot_length)] in file order.
+        read), not a hole. `pairs` is [(reply, slot_length)] in file order;
+        an EC reply brings its stripe's range as parts (_reply_parts).
         Shared by read() and batch_read_files() so their semantics cannot
         drift apart."""
         if size == 0:
@@ -354,13 +363,15 @@ class FileIoClient:
             if not reply.ok:
                 raise FsError(Status(reply.code))
             any_data = True
-            # replies may carry zero-copy transport memoryviews: append
-            # the buffer itself (join below is the ONE assembly copy) and
-            # pad a short chunk with a separate zeros part
-            data = reply.data
-            parts.append(data)
-            if len(data) < n:
-                parts.append(b"\x00" * (n - len(data)))
+            # replies may carry zero-copy transport memoryviews and an EC
+            # stripe its shards' buffers: append the buffers themselves
+            # (join below is the ONE assembly copy) and pad a short chunk
+            # with a separate zeros part
+            got = _reply_parts(reply)
+            parts.extend(got)
+            short = n - sum(map(len, got))
+            if short > 0:
+                parts.append(b"\x00" * short)
         if not any_data and inode.length == 0:
             return b""
         with _spans.span("client.read", "assemble"):
@@ -392,7 +403,7 @@ class FileIoClient:
         # _assemble before the remaining chunk RPCs are ever issued
         def one(chain_id: int, idx: int, in_off: int, n: int):
             if self._is_ec(chain_id):
-                return self._storage.read_stripe(
+                return self._storage.read_stripe_parts(
                     chain_id, ChunkId(inode.id, idx), in_off, n,
                     chunk_size=layout.chunk_size)
             return self._storage.read_chunk(
@@ -434,7 +445,7 @@ class FileIoClient:
                     chunk_size=layout.chunk_size)
             for idx, chain_id, in_off, n in segs
         ]
-        replies = self._storage.batch_read(reqs)
+        replies = self._storage.batch_read_parts(reqs)
         pos = 0
         any_data = False
         for (idx, chain_id, in_off, n), reply in zip(segs, replies):
@@ -445,10 +456,17 @@ class FileIoClient:
                 raise FsError(Status(reply.code))
             else:
                 any_data = True
-                got = reply.data[:n]
-                slot[:len(got)] = got
-                if len(got) < n:
-                    slot[len(got):] = b"\x00" * (n - len(got))
+                filled = 0  # each part straight into its slot
+                for part in _reply_parts(reply):
+                    take = min(len(part), n - filled)
+                    if take <= 0:
+                        break
+                    slot[filled:filled + take] = (
+                        part if take == len(part)
+                        else memoryview(part)[:take])
+                    filled += take
+                if filled < n:
+                    slot[filled:] = b"\x00" * (n - filled)
             pos += n
         if not any_data and inode.length == 0:
             return 0
@@ -513,7 +531,7 @@ class FileIoClient:
                     chunk_size=layout.chunk_size,
                 ))
             spans.append(mine)
-        replies = self._storage.batch_read(reqs)
+        replies = self._storage.batch_read_parts(reqs)
         return [
             self._assemble(
                 inode, [(replies[req_i], n) for req_i, n in mine], size

@@ -97,6 +97,9 @@ class StorageClientInMem:
         return [self.read_chunk(r.chain_id, r.chunk_id, r.offset, r.length)
                 for r in reqs]
 
+    # FileIoClient's entry; with no EC chains every reply is one buffer
+    batch_read_parts = batch_read
+
     # -- metadata-facing surface ---------------------------------------------
     def query_last_chunk(self, chain_id: int, file_id: int
                          ) -> Tuple[int, int]:

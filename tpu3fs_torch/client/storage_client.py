@@ -181,6 +181,10 @@ class StorageClient:
         self._ec_degraded_ms = DistributionRecorder("ec.degraded_read_ms")
         # bytes of the OK shard replies the EC reads received, both rounds
         self._ec_read_shard_bytes = CounterRecorder("ec.read_shard_bytes")
+        # degraded stripes whose survivors the card read from the pinned
+        # staging (_pinned_rows); this thread's staging buffer
+        self._ec_decode_pinned = CounterRecorder("ec.decode_pinned")
+        self._pinned = threading.local()
         self._ec_parity_rmw = CounterRecorder("ec.parity_rmw")
         self._ec_rmw_fallback = CounterRecorder("ec.parity_rmw_fallback")
         self._ec_encode_gibps = ValueRecorder("ec.encode_gibps")
@@ -575,10 +579,20 @@ class StorageClient:
         trace when none is active (tpu3fs/analytics/spans.py); sampled or
         slow ops capture their whole cross-process stage breakdown."""
         with _spans.root_span("client.batch_read"), self._op_scope():
-            return self._batch_read_op(reqs)
+            return self._batch_read_op(reqs, joined=True)
+
+    def batch_read_parts(
+        self, reqs: List[ReadReq]
+    ) -> List[ReadReply]:
+        """batch_read for FileIoClient's assembly: an EC reply's ``data``
+        is its range as a list of buffers in file order (see
+        _range_data), which the caller's one join copies; every other
+        reply is batch_read's."""
+        with _spans.root_span("client.batch_read"), self._op_scope():
+            return self._batch_read_op(reqs, joined=False)
 
     def _batch_read_op(
-        self, reqs: List[ReadReq]
+        self, reqs: List[ReadReq], joined: bool
     ) -> List[ReadReply]:
         """Group per node (ref groupOpsByNodeId) then issue node batches.
 
@@ -643,7 +657,7 @@ class StorageClient:
             r for tag, r in zip(tags, wire_replies) if tag[0] == "ec")
         if ec_specs:
             self._finish_stripe_reads(
-                reqs, replies, ec_specs, shard_replies, routing)
+                reqs, replies, ec_specs, shard_replies, routing, joined)
         # fall back to the single-op retry ladder for failures (EC replies
         # already went through the degraded decode / read_stripe ladder)
         for i, r in enumerate(replies):
@@ -1578,7 +1592,7 @@ class StorageClient:
     @staticmethod
     def _stripe_logical(spec: dict, replies: Dict[int, ReadReply],
                         group: Optional[Dict[int, bytes]] = None,
-                        parts: Optional[Dict[int, bytes]] = None) -> int:
+                        shards: Optional[Dict[int, object]] = None) -> int:
         """Logical (pre-padding) stripe length: exact from any shard's
         stored aux tag (ShardWriteReq.logical_len persisted by the
         server); full-cover reads without one infer it from stored shard
@@ -1602,28 +1616,66 @@ class StorageClient:
                 for j in range(j0, j1):
                     if j in group or j >= k:
                         continue
-                    trimmed = trim_rebuilt_shard(parts[j], j, lens, k, S)
+                    trimmed = trim_rebuilt_shard(
+                        bytes(shards[j]), j, lens, k, S)  # copy-ok: no aux tag
                     if len(trimmed) > 0:
                         logical = max(logical, j * S + len(trimmed))
         return logical
 
-    def _stripe_clean(self, spec: dict,
-                      direct: Dict[int, ReadReply]) -> Optional[ReadReply]:
+    @staticmethod
+    def _range_data(spec: dict, shards: Dict[int, object], joined: bool):
+        """A stripe's [offset, offset+length) from its covering shards'
+        buffers (stored trimmed: a short shard reads as zeros up to S), as
+        parts in file order: each buffer whole, or a memoryview cut to the
+        range at a partial first or last shard, and a short shard's zero
+        padding as a part of its own. ``joined``: the one ``bytes`` the
+        public replies carry; else the list of parts, which FileIoClient's
+        assembly copies once into its call's result."""
+        S = spec["S"]
+        lo, hi = spec["offset"], spec["offset"] + spec["length"]
+        parts: list = []
+        for j in range(spec["j0"], spec["j1"]):
+            buf = shards[j]
+            n = len(buf)
+            a, b = max(lo - j * S, 0), min(hi - j * S, S)
+            end = min(b, n)
+            if a < end:
+                parts.append(buf if (a, end) == (0, n)
+                             else memoryview(buf)[a:end])
+            if b > max(a, n):
+                parts.append(bytes(b - max(a, n)))
+        return b"".join(parts) if joined else parts  # copy-ok: range assembly
+
+    def _pinned_rows(self, k: int, S: int):
+        """This thread's page-locked staging as a (k, S) uint8 array: a
+        degraded stripe's survivors land here so the card reads them by
+        DMA, with no pageable staging of the driver's. One buffer per
+        client per thread (prefetch workers decode on their own threads),
+        grown to the largest k x S seen. The copy to the card is
+        synchronous and nothing keeps the rows after it, so the next
+        stripe may overwrite them."""
+        buf = getattr(self._pinned, "tensor", None)
+        if buf is None or buf.numel() < k * S:
+            import torch
+
+            buf = self._pinned.tensor = torch.empty(
+                k * S, dtype=torch.uint8, pin_memory=True)
+        return buf.numpy()[: k * S].reshape(k, S)
+
+    def _stripe_clean(self, spec: dict, direct: Dict[int, ReadReply],
+                      joined: bool) -> Optional[ReadReply]:
         """Assemble the fast path: every covering shard answered OK at ONE
         committed version. None = not clean (degraded decode next)."""
-        j0, j1, S = spec["j0"], spec["j1"], spec["S"]
+        j0, j1 = spec["j0"], spec["j1"]
         rs = [direct.get(j) for j in range(j0, j1)]
         if any(r is None or not r.ok for r in rs):
             return None
         vers = {r.commit_ver for r in rs}
         if len(vers) != 1:
             return None
-        lo = spec["offset"] - j0 * S
         with _spans.span("client.read_stripe", "assemble"):
-            whole = b"".join(  # copy-ok: range assembly of shard payloads
-                bytes(direct[j].data).ljust(S, b"\x00")  # copy-ok: pad to slot
-                for j in range(j0, j1))
-            data = whole[lo : lo + spec["length"]]
+            data = self._range_data(
+                spec, {j: direct[j].data for j in range(j0, j1)}, joined)
         return ReadReply(
             Code.OK,
             data=data,
@@ -1631,8 +1683,8 @@ class StorageClient:
             logical_len=self._stripe_logical(spec, direct),
         )
 
-    def _stripe_degraded(self, spec: dict,
-                         replies: Dict[int, ReadReply]) -> Optional[ReadReply]:
+    def _stripe_degraded(self, spec: dict, replies: Dict[int, ReadReply],
+                         joined: bool) -> Optional[ReadReply]:
         """Degraded decode over ALL fetched shards: group by committed
         version, reconstruct the covering shards from the newest version
         holding a k-quorum. CHUNK_NOT_FOUND when every shard is missing;
@@ -1651,7 +1703,7 @@ class StorageClient:
                 if r is None:
                     continue
                 if r.ok:
-                    # the decode path pads/joins/ndarray-stacks shard
+                    # the decode path pads and ndarray-stacks shard
                     # payloads: materialize any zero-copy transport view once
                     by_ver[r.commit_ver][j] = bytes(r.data)  # copy-ok: decode input
                     all_missing = False
@@ -1666,33 +1718,35 @@ class StorageClient:
             group = by_ver[ver]
             present = sorted(group)[:k]
             lost = [j for j in range(j0, j1) if j not in present]
-            surv = np.stack([
-                np.frombuffer(
-                    group[j].ljust(S, b"\x00"), dtype=np.uint8)
-                for j in present
-            ])
-            parts: Dict[int, bytes] = {
-                j: group[j].ljust(S, b"\x00") for j in present
-                if j0 <= j < j1
-            }
-        codec = get_codec(k, m, S, self.device)
+            if lost:
+                codec = get_codec(k, m, S, self.device)
+                # on the card the survivors land in page-locked memory,
+                # which it reads by DMA; the rebuilt shards come back in
+                # fresh memory, so the staging is free once this returns
+                pinned = codec.device.type == "cuda"
+                surv = np.stack([
+                    np.frombuffer(
+                        group[j].ljust(S, b"\x00"), dtype=np.uint8)
+                    for j in present
+                ], out=self._pinned_rows(k, S) if pinned else None)
+        shards: Dict[int, object] = {
+            j: group[j] for j in range(j0, j1) if j in group}
         if lost:
             rebuilt = codec.reconstruct_batch(present, lost, surv[None])[0]
-        lo = spec["offset"] - j0 * S
+            if pinned:
+                self._ec_decode_pinned.add()
         with _spans.span("client.read_stripe", "assemble"):
             for i, j in enumerate(lost):
-                parts[j] = rebuilt[i].tobytes()
-            whole = b"".join(  # copy-ok: range assembly of decoded shards
-                parts[j] for j in range(j0, j1))
-            data = whole[lo : lo + spec["length"]]
+                shards[j] = memoryview(rebuilt[i])
+            data = self._range_data(spec, shards, joined)
         ok_replies = {j: r for j, r in replies.items()
                       if r is not None and r.ok and r.commit_ver == ver}
         return ReadReply(
             Code.OK, data=data, commit_ver=ver,
-            logical_len=self._stripe_logical(spec, ok_replies, group, parts))
+            logical_len=self._stripe_logical(spec, ok_replies, group, shards))
 
     def _finish_stripe_reads(self, reqs, replies, ec_specs,
-                             shard_replies, routing) -> None:
+                             shard_replies, routing, joined: bool) -> None:
         """Resolve every EC request of a batch from its first-round shard
         replies; stripes that did not assemble cleanly go DEGRADED
         together — the missing/failed shards of ALL of them fetch in one
@@ -1700,7 +1754,7 @@ class StorageClient:
         detour is recorded (ec.degraded_read / ec.degraded_read_ms)."""
         degraded: List[int] = []
         for i, spec in ec_specs.items():
-            out = self._stripe_clean(spec, shard_replies[i])
+            out = self._stripe_clean(spec, shard_replies[i], joined)
             if out is not None:
                 replies[i] = out
             else:
@@ -1735,16 +1789,17 @@ class StorageClient:
         fetch_s = time.monotonic() - t0
         for i in degraded:
             t1 = time.monotonic()
-            out = self._stripe_degraded(ec_specs[i], shard_replies[i])
+            out = self._stripe_degraded(ec_specs[i], shard_replies[i],
+                                        joined)
             if out is not None and out.ok:
                 self._note_degraded(fetch_s + time.monotonic() - t1)
             elif out is None:
                 # no decodable version in this snapshot (write/rebuild in
                 # flight): the single-op ladder retries with backoff
-                out = self.read_stripe(
+                out = self._read_stripe(
                     reqs[i].chain_id, reqs[i].chunk_id,
                     ec_specs[i]["offset"], ec_specs[i]["length"],
-                    chunk_size=reqs[i].chunk_size)
+                    reqs[i].chunk_size, joined)
             replies[i] = out
 
     def read_stripe(
@@ -1761,10 +1816,31 @@ class StorageClient:
         shard, gather any k same-version survivors and reconstruct
         (degraded read). Shares its planning/assembly/decode helpers with
         batch_read so the two paths cannot drift apart."""
+        return self._read_stripe(chain_id, chunk_id, offset, length,
+                                 chunk_size, True)
+
+    def read_stripe_parts(
+        self,
+        chain_id: int,
+        chunk_id: ChunkId,
+        offset: int = 0,
+        length: int = -1,
+        *,
+        chunk_size: int = 1 << 20,
+    ) -> ReadReply:
+        """read_stripe for FileIoClient's assembly: ``data`` is the range
+        as a list of buffers in file order (see _range_data), which the
+        caller's one join copies."""
+        return self._read_stripe(chain_id, chunk_id, offset, length,
+                                 chunk_size, False)
+
+    def _read_stripe(self, chain_id: int, chunk_id: ChunkId, offset: int,
+                     length: int, chunk_size: int,
+                     joined: bool) -> ReadReply:
         with _spans.root_span("client.read_stripe", nbytes=max(0, length)), \
                 self._op_scope():
             return self._read_stripe_op(chain_id, chunk_id, offset, length,
-                                        chunk_size=chunk_size)
+                                        chunk_size, joined)
 
     def _count_shard_bytes(self, replies) -> None:
         """ec.read_shard_bytes: the bytes of a round's OK shard replies."""
@@ -1778,15 +1854,9 @@ class StorageClient:
         self._ec_degraded.add()
         self._ec_degraded_ms.record(seconds * 1000.0)
 
-    def _read_stripe_op(
-        self,
-        chain_id: int,
-        chunk_id: ChunkId,
-        offset: int = 0,
-        length: int = -1,
-        *,
-        chunk_size: int = 1 << 20,
-    ) -> ReadReply:
+    def _read_stripe_op(self, chain_id: int, chunk_id: ChunkId, offset: int,
+                        length: int, chunk_size: int,
+                        joined: bool) -> ReadReply:
         chain = self._chain(chain_id)
         if not chain.is_ec:
             raise FsError(Status(Code.INVALID_ARG, "read_stripe on CR chain"))
@@ -1810,7 +1880,7 @@ class StorageClient:
             for (j, _), r in zip(wire, got):
                 direct[j] = r
             self._count_shard_bytes(got)
-            out = self._stripe_clean(spec, direct)
+            out = self._stripe_clean(spec, direct, joined)
             if out is not None:
                 return out
             # degraded: gather every remaining readable shard, group by
@@ -1834,7 +1904,7 @@ class StorageClient:
             for (j, _), r in zip(extra, got):
                 direct[j] = r
             self._count_shard_bytes(got)
-            out = self._stripe_degraded(spec, direct)
+            out = self._stripe_degraded(spec, direct, joined)
             if out is not None:
                 if out.ok:
                     self._note_degraded(time.monotonic() - t0)
