@@ -86,6 +86,28 @@ The EC read's counters on each ``StorageClient`` (``CounterRecorder``;
 - ``ec.decode_pinned``: degraded stripes whose survivors the card read
   from the client's page-locked staging; its share of
   ``ec.degraded_read`` is 100% on the card and 0 on a CPU device.
+The KV cache's prefix-block reads (``kvcache/blocks.py``):
+
+- ``kvcache.match_prefix``: an op, the one batched presence probe of a
+  sequence's chain of block keys.
+- ``kvcache.get_blocks``: an op, with the stages ``fs_read``, the cache's
+  ``batch_get`` (the entries' stats and one striped batch read of their
+  files, whose client ops nest inside it); ``decode``, the entry headers
+  parsed (a stale entry re-probed) and the blocks read under the declared
+  element type; ``h2d``, the hand-off to the device: into a pool, the
+  host's copies into the reused page-locked staging and the copy engine's
+  two-dimensional copies into the slots (``kvcache/landing.py``; there is
+  no kernel, so no ``scatter`` stage), otherwise one blocking copy a
+  block; it ends when every block is on the device. ``stage_s`` sums the
+  same three stages' seconds under the keys ``fs_read``, ``decode`` and
+  ``copy``.
+
+Its counters, on each ``PrefixBlockStore`` (``CounterRecorder``, with
+``total``):
+
+- ``kvcache.pages_landed``: blocks a ``get_blocks`` put on a device or
+  into a pool;
+- ``kvcache.page_bytes_landed``: their payload bytes, headers left out.
 """
 
 from __future__ import annotations

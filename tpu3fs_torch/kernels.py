@@ -47,6 +47,7 @@ _SIGNATURES = {
     "tpu3fs_placement_score": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "tpu3fs_swap_score": [_P] * 8 + [_I64] * 4 + [_P],
     "tpu3fs_swap_apply": [_P] * 7 + [_I64] * 5 + [_P],
+    "tpu3fs_copy2d_h2d": [_P, _I64, _P, _I64, _I64, _I64, _P],
 }
 
 

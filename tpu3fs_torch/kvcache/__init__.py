@@ -16,14 +16,18 @@ GC remove-op IOPS), grown into a serving subsystem:
 - ``leases`` — pin/unpin xattr leases: active decodes are never GC'd
   out from under themselves
 - ``layout`` — the shared on-disk formats (shard paths, array codec,
-  lease encoding)
+  lease encoding), and pages read under a declared element type
+- ``landing`` — the hand-off of pages into a caller's layer-first paged
+  pool through reused page-locked staging
 
 All IO rides the ``kvcache`` QoS class (foreground-weighted,
 share-bounded). docs/kvcache.md has the contracts; the port writes the
 JAX package's entries byte for byte, and ``get_blocks(device="cuda")``
-copies blocks to the card. The admin CLI's kvcache commands
+copies blocks to the card (``dtype=torch.bfloat16`` for bfloat16 pages,
+``out=`` and ``slots=`` into a pool). The admin CLI's kvcache commands
 (``cli.py``) and the GC daemon (``bin/kvcache_gc_main.py``) drive
-``KVCacheGC``; the benchmark is not ported yet (ROADMAP.md).
+``KVCacheGC``; the benchmark's cell ``kv-mla-prefix-read`` lands
+DeepSeek-V3's MLA pages into a pool on the card (``portbench/``).
 """
 
 from tpu3fs_torch.kvcache.blocks import (  # noqa: F401

@@ -22,9 +22,15 @@ stat for the whole chain, then the longest present prefix.
 ``get_blocks`` returns device-ready arrays: the fs bytes decode as
 zero-copy views (layout.decode_array) and ``device=`` copies each block
 into a ``torch.Tensor`` on that device (the card: ``"cuda"``), so a
-serving loop can feed attention kernels directly. ``stage_s`` sums the
-seconds ``get_blocks`` spends in each stage: the cache read, the decode
-and the copy to the device.
+serving loop can feed attention kernels directly; ``dtype=`` declares the
+element type (a bfloat16 page is stored as ``<V2``), and ``out=`` with
+``slots=`` lands the blocks in the caller's layer-first paged pool
+(``landing.py``). ``stage_s`` sums the seconds ``get_blocks`` spends in
+each stage: the cache read, the decode and the copy to the device (the
+landing, where a pool is given). The spans ``kvcache.get_blocks`` (stages
+``fs_read``, ``decode``, ``h2d``) and ``kvcache.match_prefix`` and the
+counters ``kvcache.pages_landed`` and ``kvcache.page_bytes_landed`` are
+in ``analytics/spans.py``'s glossary.
 """
 
 from __future__ import annotations
@@ -33,15 +39,17 @@ import hashlib
 import struct
 import threading
 import time
-import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from tpu3fs_torch.analytics import spans as _spans
 from tpu3fs_torch.device import checked_device
-from tpu3fs_torch.kvcache.layout import decode_array, encode_array
+from tpu3fs_torch.kvcache.landing import PageLander
+from tpu3fs_torch.kvcache.layout import as_tensor, decode_array, encode_array
+from tpu3fs_torch.monitor.recorder import CounterRecorder
 from tpu3fs_torch.utils.result import Code, FsError
 from tpu3fs_torch.utils.result import err as _err
 
@@ -98,6 +106,10 @@ class PrefixBlockStore:
         #: (the copy to ``device``, which ends when the block is there)
         self.stage_s: Dict[str, float] = {"fs_read": 0.0, "decode": 0.0,
                                           "copy": 0.0}
+        #: blocks put on a device or into a pool, and their payload bytes
+        self.pages_landed = CounterRecorder("kvcache.pages_landed")
+        self.page_bytes_landed = CounterRecorder("kvcache.page_bytes_landed")
+        self._lander = PageLander()
 
     @property
     def cache(self):
@@ -115,7 +127,8 @@ class PrefixBlockStore:
         keys = self.block_keys(token_ids)
         if not keys:
             return PrefixMatch()
-        present = self._cache.batch_contains(keys)
+        with _spans.root_span("kvcache.match_prefix"):
+            present = self._cache.batch_contains(keys)
         n = 0
         for hit in present:
             if not hit:
@@ -170,34 +183,71 @@ class PrefixBlockStore:
 
     # -- reads --------------------------------------------------------------
     def get_blocks(self, token_ids: Sequence[int], *,
-                   count: Optional[int] = None, device=None) -> List:
+                   count: Optional[int] = None, device=None, dtype=None,
+                   out: Optional[torch.Tensor] = None,
+                   slots: Optional[Sequence[int]] = None) -> List:
         """Fetch the sequence's first `count` blocks (default: every full
         block) — host-tier hits from RAM, all misses as ONE striped batch
         underneath. Missing blocks come back as None (the caller
         re-prefills that suffix). With ``device=None`` each block is a
         numpy view over the bytes read; with ``device=`` (``"cuda"``, or
         ``"cpu"`` for a host tensor) it is copied into a ``torch.Tensor``
-        there. ``"cuda"`` on a machine with no card raises."""
+        there. ``"cuda"`` on a machine with no card raises.
+
+        ``dtype`` declares the blocks' element type (``layout.as_tensor``):
+        a bfloat16 page, stored as ``<V2``, comes back as
+        ``torch.bfloat16`` (on the host without ``device``); undeclared,
+        such a page raises TypeError where it would become a tensor.
+
+        ``out`` and ``slots`` land the blocks in a caller's layer-first
+        pool instead: ``out`` is ``(L, P, *page[1:])``, contiguous, of the
+        declared (or the pages') type, on ``device`` where one is given;
+        block ``i`` lands in ``out[:, slots[i]]`` (``landing.PageLander``)
+        and the call returns ``slots[i]``, or None for a miss, whose slot
+        is left as it was. A pool, slot or page that does not fit raises
+        INVALID_ARG before any block lands."""
         dev = None if device is None else checked_device(device)
         keys = self.block_keys(token_ids)
         if count is not None:
             keys = keys[:count]
-        t0 = time.perf_counter()
-        blobs = self._cache.batch_get(keys)
-        t1 = time.perf_counter()
-        arrays = [None if raw is None else self._decode(keys[i], raw)
-                  for i, raw in enumerate(blobs)]
-        t2 = time.perf_counter()
-        out: List = arrays
-        if dev is not None:
-            out = [None if arr is None else _to_device(arr, dev)
-                   for arr in arrays]
-        t3 = time.perf_counter()
+        if out is not None or slots is not None:
+            dev = _check_pool(out, slots, len(keys), dev, dtype)
+        with _spans.root_span("kvcache.get_blocks"):
+            t0 = time.perf_counter()
+            with _spans.span("kvcache.get_blocks", "fs_read"):
+                blobs = self._cache.batch_get(keys)
+            t1 = time.perf_counter()
+            with _spans.span("kvcache.get_blocks", "decode"):
+                blocks = [None if raw is None else self._decode(keys[i], raw)
+                          for i, raw in enumerate(blobs)]
+                hits = [i for i, blk in enumerate(blocks) if blk is not None]
+                if out is not None or dtype is not None:
+                    for i in hits:
+                        blocks[i] = as_tensor(blocks[i], dtype)
+                if out is not None:
+                    _check_pages([blocks[i] for i in hits], out)
+            t2 = time.perf_counter()
+            result: List = blocks
+            if out is not None:
+                with _spans.span("kvcache.get_blocks", "h2d"):
+                    self._lander.land([blocks[i] for i in hits], out,
+                                      [slots[i] for i in hits])
+                result = [None] * len(keys)
+                for i in hits:
+                    result[i] = slots[i]
+            elif dev is not None:
+                with _spans.span("kvcache.get_blocks", "h2d"):
+                    result = [None if blk is None else _to_device(blk, dev)
+                              for blk in blocks]
+            t3 = time.perf_counter()
+        if dev is not None and hits:
+            self.pages_landed.add(len(hits))
+            self.page_bytes_landed.add(sum(blocks[i].nbytes for i in hits))
         with self._stage_mu:
             self.stage_s["fs_read"] += t1 - t0
             self.stage_s["decode"] += t2 - t1
             self.stage_s["copy"] += t3 - t2
-        return out
+        return result
 
     def _decode(self, key: str, raw):
         """Decode one block; a KVCACHE_STALE read (cached inode outlived
@@ -227,13 +277,50 @@ class PrefixBlockStore:
         return self._leases.pin(match.keys, ttl_s)
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The device hand-off: a host tensor over the decoded view, copied to
-    ``device`` (a blocking copy, so the block is there on return). The
-    view may lie over immutable read bytes, which torch warns about; it is
-    only ever the copy's source. A void (``|V2``, bfloat16) page raises
-    TypeError, as ``jax.device_put`` does in the JAX package."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        host = torch.from_numpy(arr)
-    return host.to(device, copy=True)
+def _to_device(block, device: torch.device) -> torch.Tensor:
+    """The device hand-off: a host tensor over the decoded view (a numpy
+    block is read by ``layout.as_tensor``), copied to ``device`` (a
+    blocking copy, so the block is there on return). A void (``|V2``,
+    bfloat16) page with no declared type raises TypeError, as
+    ``jax.device_put`` does in the JAX package."""
+    if not isinstance(block, torch.Tensor):
+        block = as_tensor(block)
+    return block.to(device, copy=True)
+
+
+def _check_pool(out, slots, n: int, dev, dtype) -> torch.device:
+    """The pool and slots of a landing get: -> the pool's device. Raises
+    INVALID_ARG for a pool that is not a contiguous tensor of at least two
+    dims on ``dev`` and of ``dtype`` (where given), or slots that are not
+    ``n`` distinct indices of its second dim."""
+    if out is None or slots is None:
+        raise _err(Code.INVALID_ARG, "out and slots go together")
+    if not isinstance(out, torch.Tensor) or out.dim() < 2:
+        raise _err(Code.INVALID_ARG, "out is not a tensor (L, P, ...)")
+    if not out.is_contiguous():
+        raise _err(Code.INVALID_ARG, "out is not contiguous")
+    if dev is not None and (dev.type != out.device.type or (
+            dev.index is not None and dev.index != out.device.index)):
+        raise _err(Code.INVALID_ARG, f"out on {out.device}, device {dev}")
+    if dtype is not None and out.dtype != dtype:
+        raise _err(Code.INVALID_ARG, f"out of {out.dtype}, dtype {dtype}")
+    slots = list(slots)
+    if len(slots) != n:
+        raise _err(Code.INVALID_ARG, f"{len(slots)} slots for {n} blocks")
+    P = out.shape[1]
+    if any(not isinstance(s, (int, np.integer)) or not 0 <= s < P
+           for s in slots) or len(set(slots)) != n:
+        raise _err(Code.INVALID_ARG, f"slots must be {n} distinct indices "
+                   f"in [0, {P})")
+    return out.device
+
+
+def _check_pages(pages, out: torch.Tensor) -> None:
+    """Every page fits a slot of ``out``: shape ``out.shape[:1] +
+    out.shape[2:]`` and ``out``'s dtype; else INVALID_ARG."""
+    want = (out.shape[0],) + tuple(out.shape[2:])
+    for p in pages:
+        if tuple(p.shape) != want or p.dtype != out.dtype:
+            raise _err(Code.INVALID_ARG,
+                       f"a {p.dtype} page {tuple(p.shape)} for slots of "
+                       f"{out.dtype} {want}")

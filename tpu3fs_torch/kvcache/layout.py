@@ -14,7 +14,9 @@ numpy's ``dtype.str`` for it, ``<V2``, and reads it back as a ``|V2``
 void array. The port keeps that format: a ``torch.bfloat16`` tensor is
 written under ``<V2`` with its raw bits, and a ``<V2`` entry decodes to
 the same void array the JAX package returns (the element type is lost in
-both; ROADMAP.md, queue 3).
+both). ``as_tensor`` reads a decoded page under the element type its
+caller declares: a ``<V2`` page declared ``torch.bfloat16`` is a bfloat16
+tensor over the same bits, and the bytes on disk stay the JAX package's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import hashlib
 import struct
 import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -105,6 +108,30 @@ def decode_array(raw) -> np.ndarray:
     except (TypeError, UnicodeDecodeError) as e:
         raise _err(Code.KVCACHE_CORRUPT, f"dtype {name!r}: {e!r}")
     return np.frombuffer(raw, dtype=dtype, offset=off).reshape(shape)
+
+
+def as_tensor(arr: np.ndarray, dtype=None) -> torch.Tensor:
+    """A host tensor over a decoded page (a view, no copy) under the
+    element type the caller declares. A ``<V2`` page has no element type
+    of its own: declared ``torch.bfloat16`` its bits are bfloat16's, and
+    undeclared it raises TypeError as ``torch.from_numpy`` does for any
+    void array. A declared type that is not the page's raises INVALID_ARG.
+    The view may lie over immutable read bytes, which torch warns about;
+    it is only ever a copy's source."""
+    void = arr.dtype.kind == "V"
+    if void and dtype is not None:
+        if dtype != torch.bfloat16 or arr.dtype.itemsize != 2:
+            raise _err(Code.INVALID_ARG,
+                       f"a {arr.dtype.str} page declared {dtype}")
+        arr = arr.view(np.int16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(arr)
+    if void:
+        return t.view(torch.bfloat16)
+    if dtype is not None and t.dtype != dtype:
+        raise _err(Code.INVALID_ARG, f"a {t.dtype} page declared {dtype}")
+    return t
 
 
 def zero_hole(raw) -> bool:
